@@ -1,13 +1,16 @@
 """Orientation assignment + 128-d SIFT descriptors (port of
-``models/descriptor.py``, default branch).
+``models/descriptor.py``).
 
 All octaves' Gaussian planes are packed into one f32 plane atlas with the
 JAX package's layout (ROW_PAD/COL_PAD margins, patch origins aligned down to
 8 rows and 128 columns), so atlas and patches compare element for element.
-One patch per keypoint comes from the gather kernel (``ops/patch_gather``);
-two batched hat-weight matrix products resample it onto the axis-aligned
-orientation (18^2) and descriptor (26^2) grids; gradients, histograms and
-normalisation follow in plain PyTorch, in fp32.
+Default branch: one patch per keypoint from the gather kernel
+(``ops/patch_gather``), then two batched hat-weight matrix products resample
+it onto the axis-aligned orientation (18^2) and descriptor (26^2) grids.
+With :data:`USE_FUSED_SAMPLING`, the fused kernel (``ops/gather_resample``)
+samples both grids straight from the atlas and the patch never reaches
+memory. Gradients, histograms and normalisation follow in plain PyTorch, in
+fp32.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import math
 import torch
 
 from sift_parallel_optimization_tpu_torch.models.keypoints import Keypoints
+from sift_parallel_optimization_tpu_torch.ops.gather_resample import gather_resample, resample
 from sift_parallel_optimization_tpu_torch.ops.patch_gather import extract_atlas_patches
 
 N_ORI_BINS = 36
@@ -87,14 +91,12 @@ def build_atlas(gauss_octaves: list[torch.Tensor]):
     return atlas, meta
 
 
-def _keypoint_patches(
-    gauss_octaves: list[torch.Tensor], kp: Keypoints, max_radius: int = MAX_RADIUS
-):
-    """One aligned (patch_rows_for(max_radius), 256) patch per keypoint from
-    its own plane. Returns (patches, py, px, sig_o)."""
-    rows = patch_rows_for(max_radius)
-    atlas, meta = build_atlas(gauss_octaves)
-    o = kp.octave.clamp(0, len(gauss_octaves) - 1).long()
+def _patch_origins(meta: dict, n_oct: int, kp: Keypoints, max_radius: int, rows: int):
+    """Patch origins in the atlas, aligned down to ROW_ALIGN rows and 128
+    columns, for (rows, 256) patches covering ``max_radius`` around each
+    keypoint. Returns (grow, x0, py, px, sig_o): int32 origins, the in-patch
+    keypoint coordinates and the keypoint sigma in octave pixels."""
+    o = kp.octave.clamp(0, n_oct - 1).long()
     inv = torch.exp2(-o.to(torch.float32))
     y_o, x_o, sig_o = kp.y * inv, kp.x * inv, kp.sigma * inv
     ya = y_o + ROW_PAD
@@ -112,24 +114,20 @@ def _keypoint_patches(
         zero, wl,
     )
     grow = (ro + kp.scale * hp + y0l).to(torch.int32).contiguous()
-    patches = extract_atlas_patches(atlas, grow, x0.contiguous(), rows, PATCH_COLS)
     py = ya - y0l.to(torch.float32)
     px = xa - x0.to(torch.float32)
-    return patches, py, px, sig_o
+    return grow, x0.contiguous(), py, px, sig_o
 
 
-def _hat_weights(coords: torch.Tensor, extent: int) -> torch.Tensor:
-    """(K, G) absolute patch coords -> (K, G, extent) bilinear hat weights."""
-    p = torch.arange(extent, dtype=torch.float32, device=coords.device)
-    return torch.clamp(1.0 - (coords[..., None] - p).abs(), min=0.0)
-
-
-def _resample(patches, py, px, offsets) -> torch.Tensor:
-    """Separable bilinear resample at axis-aligned offsets: (K, PR, PC)
-    patches, (K,) in-patch centre, (K, G) offsets -> (K, G, G) samples."""
-    ay = _hat_weights(py[:, None] + offsets, patches.shape[-2])
-    ax = _hat_weights(px[:, None] + offsets, patches.shape[-1])
-    return torch.bmm(torch.bmm(ay, patches), ax.transpose(1, 2))
+def _keypoint_patches(
+    gauss_octaves: list[torch.Tensor], kp: Keypoints, max_radius: int = MAX_RADIUS
+):
+    """One aligned (patch_rows_for(max_radius), 256) patch per keypoint from
+    its own plane. Returns (patches, py, px, sig_o)."""
+    rows = patch_rows_for(max_radius)
+    atlas, meta = build_atlas(gauss_octaves)
+    grow, x0, py, px, sig_o = _patch_origins(meta, len(gauss_octaves), kp, max_radius, rows)
+    return extract_atlas_patches(atlas, grow, x0, rows, PATCH_COLS), py, px, sig_o
 
 
 def _grid_gradients(samples: torch.Tensor):
@@ -149,6 +147,25 @@ def _radii(sig_o: torch.Tensor, max_radius: int = MAX_RADIUS):
     return rad_o, rad_d
 
 
+# Sample both grids with the fused gather-resample kernel instead of the
+# patch gather + two batched products. Off by default, as in the JAX package.
+USE_FUSED_SAMPLING = False
+
+
+def _fused_sample_grids(gauss_octaves: list[torch.Tensor], kp: Keypoints):
+    """The JAX package's fused branch: MAX_RADIUS-wide (PATCH_ROWS, 256)
+    patches, both grids sampled by ``ops/gather_resample``. Returns
+    (samples_o, samples_d, rad_o, rad_d, sig_o)."""
+    atlas, meta = build_atlas(gauss_octaves)
+    grow, x0, py, px, sig_o = _patch_origins(
+        meta, len(gauss_octaves), kp, MAX_RADIUS, PATCH_ROWS
+    )
+    rad_o, rad_d = _radii(sig_o)
+    params = torch.stack([py, px, rad_o, rad_d], dim=1).contiguous()
+    samples_o, samples_d = gather_resample(atlas, grow, x0, params)
+    return samples_o, samples_d, rad_o, rad_d, sig_o
+
+
 def _sample_grids(
     gauss_octaves: list[torch.Tensor], kp: Keypoints, max_radius: int = MAX_RADIUS
 ):
@@ -157,12 +174,15 @@ def _sample_grids(
     device = kp.x.device
     lin_o = torch.linspace(-1.0, 1.0, ORI_GRID, device=device)
     lin_d = torch.linspace(-1.0, 1.0, DESC_GRID, device=device)
-    patches, py, px, sig_o = _keypoint_patches(gauss_octaves, kp, max_radius=max_radius)
-    rad_o, rad_d = _radii(sig_o, max_radius=max_radius)
+    if USE_FUSED_SAMPLING:
+        samples_o, samples_d, rad_o, rad_d, sig_o = _fused_sample_grids(gauss_octaves, kp)
+    else:
+        patches, py, px, sig_o = _keypoint_patches(gauss_octaves, kp, max_radius=max_radius)
+        rad_o, rad_d = _radii(sig_o, max_radius=max_radius)
+        samples_o = resample(patches, py, px, lin_o[None] * rad_o[:, None])
+        samples_d = resample(patches, py, px, lin_d[None] * rad_d[:, None])
     off_o = lin_o[None] * rad_o[:, None]
     off_d = lin_d[None] * rad_d[:, None]
-    samples_o = _resample(patches, py, px, off_o)
-    samples_d = _resample(patches, py, px, off_d)
     return samples_o, samples_d, off_o, off_d, sig_o
 
 

@@ -1,13 +1,24 @@
-"""DoG extrema detection (port of ``models/detect.py``, exact path).
+"""DoG extrema detection (port of ``models/detect.py``).
 
-What the JAX package runs off the TPU (``use_approx_topk=False``, hence no
-packed hop codes): a dense per-voxel ranking score over every octave (strict
-26-neighbour extremum, Brown & Lowe quadratic fit via closed-form 3x3
-adjugate, Lowe's edge test, refined contrast), ONE exact top-k over the
-concatenated octaves with ties to the lower flat index, then a sparse re-fit
-of the selected candidates from their gathered 3x3x3 DoG neighbourhoods with
-one-voxel refinement hops. Same expressions in the same order as the JAX
-functions, so CPU results agree to the last bits on the same DoG input.
+A dense per-voxel ranking score over every octave (strict 26-neighbour
+extremum, Brown & Lowe quadratic fit via closed-form 3x3 adjugate, Lowe's
+edge test, refined contrast), a fixed-capacity selection of ``max_keypoints``
+candidates across all octaves, then a sparse re-fit of the selected
+candidates from their gathered 3x3x3 DoG neighbourhoods with one-voxel
+refinement hops. Same expressions in the same order as the JAX functions,
+so CPU results agree to the last bits on the same DoG input.
+
+Two selection branches, as in the JAX package (``use_approx_topk``):
+
+* exact (the default on the CPU): the dense score volume, then ONE stable
+  top-k over the concatenated octaves, ties to the lower flat index;
+* block-reduce (the default on the card): the score never reaches memory.
+  Kernel ``ops/score_tables`` writes per flat 64-voxel block the top-2 of
+  the score with the first refinement hop packed into its low mantissa bits
+  (every voxel of an octave under 4096 voxels); one selection over those
+  tables picks the candidates, and the sparse re-fit starts at the hopped
+  voxel. The JAX package's ``approx_max_k`` is exact on the CPU and exact
+  selection is a valid ``approx_max_k``, so the port selects exactly.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import torch
 
 from sift_parallel_optimization_tpu_torch.config import PyramidConfig
 from sift_parallel_optimization_tpu_torch.models.keypoints import Keypoints, stable_top_k
+from sift_parallel_optimization_tpu_torch.ops import score_tables
 
 CONTRAST_THRESHOLD = 0.04
 EDGE_RATIO = 10.0
@@ -85,14 +97,23 @@ def _solve3(h, g):
     return off_s, off_y, off_x, det
 
 
-def _dense_score(
+def dense_score(
     dog: torch.Tensor,
-    cfg: PyramidConfig,
-    contrast_threshold: float,
+    thr: float,
     edge_ratio: float,
     refine_iters: int,
-) -> torch.Tensor:
-    """(S+2, H, W) DoG -> (S, H-2, W-2) ranking score (0 off-candidate)."""
+    want_hops: bool = False,
+):
+    """(S+2, H, W) DoG -> (S, H-2, W-2) ranking score (0 off-candidate) for
+    the contrast threshold ``thr`` (already divided by S).
+
+    ``want_hops`` (refine_iters >= 1 only) also returns the int32 key the
+    block-reduce branch ranks by: the score's bit pattern (order-preserving
+    for non-negative f32) with its 5 low bits replaced by the first
+    refinement hop code, (st_s*9 + st_y*3 + st_x) for st = clip(round(off),
+    -1, 1) + 1, or 13 where every |offset| <= MAX_REFINE_OFFSET; a score of
+    0 stays exactly 0.
+    """
     dog = dog.to(torch.float32)
     is_max, is_min = _window_extrema(dog)
     g, h = _grad_hess(dog)
@@ -101,7 +122,6 @@ def _dense_score(
     gs, gy, gx = g
     _hss, hyy, hxx, _hsy, _hsx, hyx = h
     edge_ok = _edge_test(hyy, hxx, hyx, edge_ratio)
-    thr = contrast_threshold / cfg.S
     zero = torch.zeros_like(c)
     m = MAX_REFINE_OFFSET
     if refine_iters:
@@ -111,7 +131,17 @@ def _dense_score(
             gs * off_s.clamp(-m, m) + gy * off_y.clamp(-m, m) + gx * off_x.clamp(-m, m)
         )
         good = (is_max | is_min) & (d_rank.abs() > thr) & edge_ok
-        return torch.where(good, d_rank.abs(), zero)
+        score = torch.where(good, d_rank.abs(), zero)
+        if not want_hops:
+            return score
+        conv = (off_s.abs() <= m) & (off_y.abs() <= m) & (off_x.abs() <= m)
+        st = lambda o: torch.round(o).clamp(-1, 1).to(torch.int32) + 1
+        hop = torch.where(conv, 13, st(off_s) * 9 + st(off_y) * 3 + st(off_x))
+        bits = score.view(torch.int32)
+        packed = torch.where(score > 0, (bits & ~31) | hop, 0)
+        return score, packed
+    if want_hops:
+        raise ValueError("want_hops requires refine_iters >= 1")
     d_hat = c + 0.5 * (gs * off_s + gy * off_y + gx * off_x)
     off_ok = (off_s.abs() < m) & (off_y.abs() < m) & (off_x.abs() < m)
     good = (is_max | is_min) & (d_hat.abs() > thr) & edge_ok & off_ok
@@ -149,6 +179,68 @@ def _cube_fit(vals19: torch.Tensor, edge_ratio: float):
     return off_s, off_y, off_x, d_hat, _edge_test(hyy, hxx, hyx, edge_ratio)
 
 
+# (shapes, device) -> the static index tensors of one pyramid shape.
+_STATIC: dict[tuple, dict] = {}
+
+
+def _static(shapes: tuple, device) -> dict:
+    """Per-octave metadata of a pyramid shape on ``device``, built once:
+    flat score bases, interior dims, DoG starts, fit offsets, and the
+    positions the block-reduce selection gathers from."""
+    key = (shapes, str(device))
+    if key in _STATIC:
+        return _STATIC[key]
+    lay = score_tables.table_layout(shapes)
+    meta = lambda v: torch.tensor(v, dtype=torch.int64, device=device)
+    st = {
+        "lay": lay,
+        "base": meta([o.g_base for o in lay]),
+        "hs": meta([o.h - 2 for o in lay]),
+        "ws": meta([o.w - 2 for o in lay]),
+        "gstart": meta([o.dog_off for o in lay]),
+        "fit": meta(list(_FIT_OFFSETS)),                     # (19, 3)
+    }
+    dense = [(j, o) for j, o in enumerate(lay) if o.dense]
+    if dense:
+        st["dense_grp"] = meta([j for j, o in dense for _ in range(o.vg)])
+        st["dense_pos"] = torch.cat([
+            torch.arange(o.out_off, o.out_off + o.vg, device=device) for _, o in dense
+        ])
+    st["tables"] = {
+        j: torch.arange(o.out_off, o.out_off + o.n, device=device)
+        for j, o in enumerate(lay) if not o.dense
+    }
+    _STATIC[key] = st
+    return st
+
+
+def _select_from_tables(vals, idx, score, st: dict, k: int):
+    """The JAX package's extraction over the block tables: each octave's part
+    is its [firsts, seconds] tables or, for an octave under 4096 voxels, its
+    exact top-min(k, vg) by f32 score (ties to the lower index); the parts
+    concatenate in octave order, zero-pad to k and meet ONE stable top-k
+    (ties to the lower position). Returns (k,) int32 keys and int64 indices."""
+    lay = st["lay"]
+    if "dense_pos" in st:
+        # Group by octave, score descending within it: two stable sorts.
+        order = torch.sort(score, descending=True, stable=True).indices
+        order = order[torch.sort(st["dense_grp"][order], stable=True).indices]
+        perm = st["dense_pos"][order]
+        full = torch.cat([
+            perm[o.score_off:o.score_off + min(k, o.vg)] if o.dense else st["tables"][j]
+            for j, o in enumerate(lay)
+        ])
+        vals, idx = vals[full], idx[full]
+    if len(lay) == 1 and vals.numel() == k:
+        return vals, idx
+    if vals.numel() < k:
+        pad = k - vals.numel()
+        vals = torch.cat([vals, vals.new_zeros(pad)])
+        idx = torch.cat([idx, idx.new_zeros(pad)])
+    top, sel = stable_top_k(vals, k)
+    return top, idx[sel]
+
+
 def detect_pyramid(
     dogs: list[torch.Tensor],
     cfg: PyramidConfig,
@@ -156,72 +248,105 @@ def detect_pyramid(
     contrast_threshold: float = CONTRAST_THRESHOLD,
     edge_ratio: float = EDGE_RATIO,
     refine_iters: int = 1,
+    use_approx_topk: bool | None = None,
+    adaptive_hop: bool = False,
 ) -> Keypoints:
     """(S+2, H_o, W_o) DoG octaves -> ``max_keypoints`` slots shared across
-    all octaves (global exact top-k by ranking score)."""
+    all octaves.
+
+    ``use_approx_topk`` picks the selection branch (module docstring); None
+    means the block-reduce branch on a CUDA tensor and the exact one on the
+    CPU. ``adaptive_hop`` adds one more hop-and-refit round for candidates
+    whose last fit still escapes the trust region; converged candidates keep
+    their values (computed for all, then selected: no host sync).
+    """
     device = dogs[0].device
     ds2 = dogs[0].shape[0]
-    scores = [
-        _dense_score(d, cfg, contrast_threshold, edge_ratio, refine_iters)
-        for d in dogs
-    ]
-    # Per-octave metadata: flat score base, interior dims, hop limits and
-    # the flat start of the octave's DoG in the concatenated DoG buffer.
-    m_base, m_hs, m_ws, m_gstart = [], [], [], []
-    base = gstart = 0
-    for d, sc in zip(dogs, scores):
-        m_base.append(base)
-        m_hs.append(sc.shape[1])
-        m_ws.append(sc.shape[2])
-        m_gstart.append(gstart)
-        base += sc.numel()
-        gstart += d.numel()
-    flat = torch.cat([sc.reshape(-1) for sc in scores])
-    k = min(max_keypoints, flat.numel())
-    vals, idx = stable_top_k(flat, k)
+    if use_approx_topk is None:
+        use_approx_topk = device.type == "cuda"
+    use_hops = use_approx_topk and refine_iters >= 1
+    shapes = tuple(tuple(d.shape) for d in dogs)
+    n_total = sum((p - 2) * (h - 2) * (w - 2) for p, h, w in shapes)
+    k = min(max_keypoints, n_total)
+    st = _static(shapes, device)
+    flat_dog = torch.cat([d.to(torch.float32).reshape(-1) for d in dogs])
+    thr = contrast_threshold / cfg.S
+    if use_approx_topk:
+        tv, ti, tscore = score_tables.score_block_top2(
+            flat_dog, shapes, thr, edge_ratio, refine_iters
+        )
+        vals, idx = _select_from_tables(tv, ti, tscore, st, k)
+    else:
+        scores = [dense_score(d, thr, edge_ratio, refine_iters) for d in dogs]
+        vals, idx = stable_top_k(torch.cat([sc.reshape(-1) for sc in scores]), k)
     if k < max_keypoints:  # tiny pyramid: pad up to capacity
         pad = max_keypoints - k
         vals = torch.cat([vals, vals.new_zeros(pad)])
         idx = torch.cat([idx, idx.new_zeros(pad)])
+    if use_approx_topk:
+        # One decode of the winners: hop code from the low 5 bits, the f32
+        # score from the rest (packed 0 -> 0.0, so invalid slots stay so).
+        if use_hops:
+            hops = (vals & 31).to(torch.int64)
+            vals = vals & ~31
+        vals = vals.view(torch.float32)
 
-    meta = lambda v: torch.tensor(v, dtype=torch.int64, device=device)
-    bases = meta(m_base)
+    bases = st["base"]
     j = (idx[:, None] >= bases[None, :]).sum(-1) - 1   # octave of each slot
-    hs_c, ws_c = meta(m_hs)[j], meta(m_ws)[j]
-    gstart_c = meta(m_gstart)[j]
+    hs_c, ws_c = st["hs"][j], st["ws"][j]
+    gstart_c = st["gstart"][j]
     lim_y, lim_x = hs_c - 1, ws_c - 1                   # = H-3, W-3
+    lim_s = torch.full_like(hs_c, ds2 - 3)
     rem = idx - bases[j]
     s_i = rem // (hs_c * ws_c)
     y_i = (rem // ws_c) % hs_c
     x_i = rem % ws_c
 
-    flat_dog = torch.cat([d.to(torch.float32).reshape(-1) for d in dogs])
     wp_c = ws_c + 2
     sp_c = (hs_c + 2) * wp_c
-    fit = torch.tensor(_FIT_OFFSETS, dtype=torch.int64, device=device)  # (19, 3)
+    fit = st["fit"]
     deltas = fit[:, 0] * sp_c[:, None] + fit[:, 1] * wp_c[:, None] + fit[:, 2]
 
     def fit_at(ps, py, px):
         corner = gstart_c + ps * sp_c + py * wp_c + px
         return _cube_fit(flat_dog[corner[:, None] + deltas], edge_ratio)
 
-    os_, oy, ox, dh, eok = fit_at(s_i, y_i, x_i)
-    ps, py, px = s_i, y_i, x_i
-    m = MAX_REFINE_OFFSET
-    if refine_iters:
-        def hop(p, o, lim, conv):
-            step = torch.round(o).clamp(-1, 1).to(torch.int64)
-            return torch.where(conv, p, torch.minimum(torch.clamp(p + step, min=0), lim))
+    def hop(p, o, lim, conv):
+        step = torch.round(o).clamp(-1, 1).to(torch.int64)
+        return torch.where(conv, p, torch.minimum(torch.clamp(p + step, min=0), lim))
 
-        for _ in range(refine_iters):
+    m = MAX_REFINE_OFFSET
+    if use_hops:
+        # The first hop was decided densely and rides the tables: start
+        # there (code 13 = no hop decodes to steps (0, 0, 0)).
+        ps = torch.minimum(torch.clamp(s_i + (hops // 9 - 1), min=0), lim_s)
+        py = torch.minimum(torch.clamp(y_i + ((hops // 3) % 3 - 1), min=0), lim_y)
+        px = torch.minimum(torch.clamp(x_i + (hops % 3 - 1), min=0), lim_x)
+        rounds_left = refine_iters - 1
+    else:
+        ps, py, px = s_i, y_i, x_i
+        rounds_left = refine_iters
+    os_, oy, ox, dh, eok = fit_at(ps, py, px)
+    if refine_iters:
+        for _ in range(rounds_left):
             conv = (os_.abs() <= m) & (oy.abs() <= m) & (ox.abs() <= m)
-            ps = hop(ps, os_, torch.full_like(ps, ds2 - 3), conv)
+            ps = hop(ps, os_, lim_s, conv)
             py = hop(py, oy, lim_y, conv)
             px = hop(px, ox, lim_x, conv)
             os_, oy, ox, dh, eok = fit_at(ps, py, px)
+        if adaptive_hop:
+            # Zero-score slots count as converged.
+            conv = ((os_.abs() <= m) & (oy.abs() <= m) & (ox.abs() <= m)) | (vals <= 0)
+            ps2 = hop(ps, os_, lim_s, conv)
+            py2 = hop(py, oy, lim_y, conv)
+            px2 = hop(px, ox, lim_x, conv)
+            new = fit_at(ps2, py2, px2)
+            ps, py, px = (torch.where(conv, a, b) for a, b in ((ps, ps2), (py, py2), (px, px2)))
+            os_, oy, ox, dh, eok = (
+                torch.where(conv, a, b) for a, b in zip((os_, oy, ox, dh, eok), new)
+            )
         s_i, y_i, x_i = ps, py, px
         off_ok = (os_.abs() < m) & (oy.abs() < m) & (ox.abs() < m)
-        thr = contrast_threshold / cfg.S
         valid = (vals > 0) & off_ok & eok & (dh.abs() > thr)
         vals = torch.where(valid, dh.abs(), torch.zeros_like(dh))
     else:

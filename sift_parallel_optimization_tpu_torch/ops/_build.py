@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, ``build/kernels/
-libsift_kernels.so`` at the repository root, and loaded with ctypes. The
-library is rebuilt when the hash of the sources and flags changes. Pointers
-and the CUDA stream travel as ``c_void_p``. A failed build raises.
+At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, ``build/kernels/libsift_kernels.so`` at the
+repository root, loaded with ctypes. The library is rebuilt when the hash of
+the sources and flags changes. Pointers and the CUDA stream travel as
+``c_void_p``. A failed build raises.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libsift_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -54,6 +55,19 @@ def source_hash() -> str:
     return h.hexdigest()
 
 
+def _nvcc_jobs(cmds: list[list[str]]) -> None:
+    """Run the nvcc commands at once; raise with every failure's output."""
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in jobs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(force: bool = False) -> float:
     """Compile the kernels if the sources changed; returns build seconds
     (0.0 when the library on disk is current)."""
@@ -64,14 +78,15 @@ def build(force: bool = False) -> float:
         return 0.0
     nvcc = _nvcc()
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    _nvcc_jobs([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)])
+    _nvcc_jobs([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, LIB_PATH)
     stamp.write_text(digest)
     return time.perf_counter() - t0
@@ -90,6 +105,13 @@ def load_kernels() -> ctypes.CDLL:
         lib.sift_reference_dog_pyramid.argtypes = [p, p, p, i, i, i, p]
         lib.sift_patch_gather.restype = i
         lib.sift_patch_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        f = ctypes.c_float
+        lib.sift_score_tables_rows.restype = i
+        lib.sift_score_tables_rows.argtypes = [p, i, i, i, f, f, f, p, p, p]
+        lib.sift_score_block_top2.restype = i
+        lib.sift_score_block_top2.argtypes = [p, p, i, i, f, f, f, i, p, p, p, p]
+        lib.sift_gather_resample.restype = i
+        lib.sift_gather_resample.argtypes = [p, i, i, p, p, p, i, i, p, p, p]
         _lib = lib
         return _lib
 

@@ -2,7 +2,10 @@
 
     python -m sift_parallel_optimization_tpu_torch.profile_frontend --size 512 --k 512
 
-Warms the frontend up on ``synth_frame`` frames, then for each stage of
+Profiles the frontend as it runs on the card by default (block-reduce
+detection); ``--exact`` takes the exact detection branch instead and
+``--fused`` sets ``models.descriptor.USE_FUSED_SAMPLING``. Warms the
+frontend up on ``synth_frame`` frames, then for each stage of
 ``SiftFrontend`` (gaussian pyramid, detect, describe) prints the median host
 milliseconds of a synchronized call with no profiler, and from one
 ``torch.profiler`` run per stage the number of device kernels and their
@@ -21,6 +24,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from sift_parallel_optimization_tpu_torch.models import descriptor
 from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
 from sift_parallel_optimization_tpu_torch.utils import native
 from sift_parallel_optimization_tpu_torch.utils.profiling import device_activity
@@ -40,13 +44,17 @@ def main(argv=None) -> int:
     p.add_argument("--S", type=int, default=3)
     p.add_argument("--k", type=int, default=512)
     p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--exact", action="store_true", help="exact detection branch")
+    p.add_argument("--fused", action="store_true", help="fused descriptor sampling")
     p.add_argument("--out", default=None, help="write the whole-frame kernel table here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frontend needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    fe = SiftFrontend(sift_config(args.size, S=args.S), max_keypoints=args.k, device=dev)
+    descriptor.USE_FUSED_SAMPLING = args.fused
+    fe = SiftFrontend(sift_config(args.size, S=args.S), max_keypoints=args.k, device=dev,
+                      use_approx_topk=not args.exact)
     img = torch.from_numpy(native.synth_frame(args.size, 0, seed=0)).to(dev)
     for _ in range(3):
         fe(img)
@@ -58,8 +66,9 @@ def main(argv=None) -> int:
         "describe": lambda: fe.describe(gauss, kp),
         "frame": lambda: fe(img),
     }
-    print(f"{torch.cuda.get_device_name(0)} frontend {args.size}^2 S={args.S} K={args.k}, "
-          f"median of {args.iters}:")
+    branch = ("exact" if args.exact else "block-reduce") + (" + fused" if args.fused else "")
+    print(f"{torch.cuda.get_device_name(0)} frontend {args.size}^2 S={args.S} K={args.k} "
+          f"({branch}), median of {args.iters}:")
     for name, fn in stages.items():
         wall = statistics.median(_wall_ms(fn) for _ in range(args.iters))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -1,13 +1,21 @@
 """ctypes bindings to the native host runtime (``native/libsift_host.so``).
 
-The same library the JAX package loads: built with ``make -C native`` on
+The same library the JAX package loads: built from ``native/Makefile`` on
 first use. It supplies host-side data generation and image I/O, no device
 code. ``synth_frame`` falls back to NumPy when the library cannot be built.
+
+Several processes may load it at once on a fresh tree (pytest workers, for
+one). So the build runs under an exclusive ``flock`` on ``native/
+.libsift_host.lock`` into a private target that is then renamed over the
+library: no process ever opens a half-written file that this loader wrote.
+A library that another process's build left half-written fails to open; it is then
+rebuilt under the lock and opened once more before a failure is cached.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -16,11 +24,45 @@ from pathlib import Path
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-_LIB_PATH = _NATIVE_DIR / "libsift_host.so"
+_LIB_NAME = "libsift_host.so"
 _lock = threading.Lock()
 _lib = None
 _build_error: str | None = None
 _F32P = ctypes.POINTER(ctypes.c_float)
+
+
+def _stale(lib_path: Path) -> bool:
+    return not lib_path.exists() or (
+        lib_path.stat().st_mtime < (_NATIVE_DIR / "sift_host.cpp").stat().st_mtime
+    )
+
+
+def _build(lib_path: Path, force: bool) -> None:
+    """Build under the cross-process lock into a private target, then move
+    it over the library (unless another process already did, or ``force``)."""
+    with open(_NATIVE_DIR / ".libsift_host.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not force and not _stale(lib_path):
+            return
+        tmp = f"{_LIB_NAME}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["make", "-C", str(_NATIVE_DIR), f"TARGET={tmp}"],
+                           check=True, capture_output=True, text=True)
+            os.replace(_NATIVE_DIR / tmp, lib_path)
+        finally:
+            (_NATIVE_DIR / tmp).unlink(missing_ok=True)
+
+
+def _open() -> ctypes.CDLL:
+    lib_path = _NATIVE_DIR / _LIB_NAME
+    if _stale(lib_path):
+        _build(lib_path, force=False)
+    try:
+        return ctypes.CDLL(str(lib_path))
+    except OSError:
+        # Half-written by a build that writes in place: rebuild, retry once.
+        _build(lib_path, force=True)
+        return ctypes.CDLL(str(lib_path))
 
 
 def _load():
@@ -29,15 +71,7 @@ def _load():
         if _lib is not None or _build_error is not None:
             return _lib
         try:
-            if not _LIB_PATH.exists() or (
-                _LIB_PATH.stat().st_mtime
-                < (_NATIVE_DIR / "sift_host.cpp").stat().st_mtime
-            ):
-                subprocess.run(
-                    ["make", "-C", str(_NATIVE_DIR)],
-                    check=True, capture_output=True, text=True,
-                )
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            lib = _open()
         except (OSError, subprocess.CalledProcessError) as e:
             _build_error = str(e)
             return None

@@ -12,9 +12,12 @@ import pytest
 import torch
 
 from sift_parallel_optimization_tpu_torch.core import pyramid_ref
+from sift_parallel_optimization_tpu_torch.models import descriptor
 from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+from sift_parallel_optimization_tpu_torch.ops import gather_resample as gr
 from sift_parallel_optimization_tpu_torch.ops import patch_gather as pg
 from sift_parallel_optimization_tpu_torch.ops import scale_space as ss
+from sift_parallel_optimization_tpu_torch.ops import score_tables as st
 from sift_parallel_optimization_tpu_torch.utils import native
 
 pytestmark = pytest.mark.cuda
@@ -61,6 +64,51 @@ def test_patch_gather_kernel_is_bitwise_plain(dev, k):
     assert torch.equal(got, want)
 
 
+def _dogs(dev, shape, seed):
+    return torch.from_numpy(
+        (0.05 * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(5, 128, 128), (5, 250, 370), (4, 37, 70)])
+def test_score_tables_rows_kernel_is_bitwise_plain(dev, shape):
+    dog = _dogs(dev, shape, shape[1])
+    got = st.score_tables_rows_cuda(dog, 0.04 / 3, 10.0)
+    want = st.score_tables_rows_plain(dog, 0.04 / 3, 10.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("refine_iters", [0, 1])
+def test_score_block_top2_kernel_is_bitwise_plain(dev, refine_iters):
+    # Octaves of a 250 x 370 frame: block tables above 4096 voxels, every
+    # voxel below; a ragged last block in each.
+    shapes = [(5, 250 >> o, 370 >> o) for o in range(5)]
+    flat = torch.cat([_dogs(dev, s, i).reshape(-1) for i, s in enumerate(shapes)])
+    got = st.score_block_top2_cuda(flat, shapes, 0.04 / 3, 10.0, refine_iters)
+    want = st.score_block_top2_plain(flat, shapes, 0.04 / 3, 10.0, refine_iters)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int((got[0] > 0).sum()) > 50
+
+
+def test_gather_resample_kernel_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    k, r, c = 512, 3000, 1280
+    atlas = torch.from_numpy(rng.random((r, c), dtype=np.float32)).to(dev)
+    grow = rng.integers(0, r - 128, size=k).astype(np.int32)
+    x0 = rng.integers(0, c - 256, size=k).astype(np.int32)
+    grow[:3], x0[:3] = (r - 128, -5, 7), (c - 256, 3, -1)   # edge and unnormalised origins
+    params = np.stack([rng.uniform(-10, 140, k), rng.uniform(-10, 270, k),
+                       rng.uniform(1, 60, k), rng.uniform(1, 60, k)], 1).astype(np.float32)
+    args = (atlas, torch.from_numpy(grow).to(dev), torch.from_numpy(x0).to(dev),
+            torch.from_numpy(params).to(dev))
+    got = gr.gather_resample_cuda(*args)
+    want = gr.gather_resample_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
 def test_wrappers_check_inputs(dev):
     with pytest.raises(ValueError, match="square"):
         ss.reference_dog_pyramid_cuda(torch.zeros(8, 16, device=dev), 2)
@@ -70,12 +118,16 @@ def test_wrappers_check_inputs(dev):
         pg.extract_atlas_patches_cuda(atlas, idx, idx, 8, 8)
 
 
-def test_main_path_launches_both_kernels(dev, monkeypatch):
-    monkeypatch.setattr(ss, "LAUNCHES", 0)
-    monkeypatch.setattr(pg, "LAUNCHES", 0)
+def test_main_path_launches_the_kernels(dev, monkeypatch):
+    for mod in (ss, pg, st, gr):
+        monkeypatch.setattr(mod, "LAUNCHES", 0)
     img = torch.from_numpy(native.synth_frame(256, 0, seed=0)).to(dev)
     pyramid_ref.reference_dog_pyramid(img, 2)
-    feats = SiftFrontend(sift_config(256), max_keypoints=64, device=dev)(img)
+    fe = SiftFrontend(sift_config(256), max_keypoints=64, device=dev)
+    feats = fe(img)
+    monkeypatch.setattr(descriptor, "USE_FUSED_SAMPLING", True)
+    fused = fe(img)
     torch.cuda.synchronize()
-    assert ss.LAUNCHES == 1 and pg.LAUNCHES == 1
+    assert (ss.LAUNCHES, pg.LAUNCHES, st.LAUNCHES, gr.LAUNCHES) == (1, 1, 2, 1)
     assert int(feats.keypoints.count()) > 0
+    assert torch.equal(feats.keypoints.valid, fused.keypoints.valid)

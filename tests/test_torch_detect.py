@@ -88,8 +88,8 @@ def test_dense_score_matches_jax(rng):
         want = np.asarray(jax.jit(lambda d: jdet._dense_score(
             d, jcfg, jdet.CONTRAST_THRESHOLD, jdet.EDGE_RATIO, refine
         ))(jnp.asarray(dog)))
-        got = tdet._dense_score(
-            torch.from_numpy(dog), tfe.sift_config(32), tdet.CONTRAST_THRESHOLD,
+        got = tdet.dense_score(
+            torch.from_numpy(dog), tdet.CONTRAST_THRESHOLD / tfe.sift_config(32).S,
             tdet.EDGE_RATIO, refine,
         ).numpy()
         # Same candidates; values equal up to f32 contraction differences.

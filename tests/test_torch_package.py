@@ -3,9 +3,12 @@ plain paths, configs and keypoints cross over from the JAX package, and the
 kernel build fails loudly."""
 
 import dataclasses
+import hashlib
 import pkgutil
+import shutil
 import subprocess
 import sys
+import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -19,9 +22,12 @@ from sift_parallel_optimization_tpu.utils import native as jnative
 from sift_parallel_optimization_tpu_torch import config as tconfig
 from sift_parallel_optimization_tpu_torch.core import pyramid_ref as tpr
 from sift_parallel_optimization_tpu_torch.models import frontend as tfe
+from sift_parallel_optimization_tpu_torch.models import descriptor as tdesc
 from sift_parallel_optimization_tpu_torch.ops import _build
+from sift_parallel_optimization_tpu_torch.ops import gather_resample as tgr
 from sift_parallel_optimization_tpu_torch.ops import patch_gather as tpg
 from sift_parallel_optimization_tpu_torch.ops import scale_space as tss
+from sift_parallel_optimization_tpu_torch.ops import score_tables as tst
 from sift_parallel_optimization_tpu_torch.utils import native as tnative
 from sift_parallel_optimization_tpu_torch.utils import profiling
 
@@ -51,13 +57,18 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_tensors_take_plain_paths(monkeypatch):
-    monkeypatch.setattr(tss, "LAUNCHES", 0)
-    monkeypatch.setattr(tpg, "LAUNCHES", 0)
+    for mod in (tss, tpg, tst, tgr):
+        monkeypatch.setattr(mod, "LAUNCHES", 0)
     img = torch.from_numpy(tnative.synth_frame(64, 0, seed=5))
     tpr.reference_dog_pyramid(img, 2)
     feats = tfe.extract_features(img, tfe.sift_config(64), 32)
     assert feats.descriptors.shape == (32, 128)
-    assert tss.LAUNCHES == 0 and tpg.LAUNCHES == 0
+    # Both accelerator branches, forced on CPU tensors: plain versions only.
+    monkeypatch.setattr(tdesc, "USE_FUSED_SAMPLING", True)
+    feats = tfe.extract_features(img, tfe.sift_config(64), 32, use_approx_topk=True)
+    assert feats.descriptors.shape == (32, 128)
+    tst.score_tables_rows(torch.zeros(5, 8, 8), 0.01, 10.0)
+    assert tss.LAUNCHES == tpg.LAUNCHES == tst.LAUNCHES == tgr.LAUNCHES == 0
 
 
 def test_wrappers_refuse_other_devices():
@@ -69,6 +80,19 @@ def test_wrappers_refuse_other_devices():
         tpg.extract_atlas_patches(meta, idx, idx, 4, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tss.reference_dog_pyramid_cuda(torch.zeros(8, 8), 2)
+    dog = torch.empty((5, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tst.score_tables_rows(dog, 0.01, 10.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tst.score_block_top2(dog.reshape(-1), [(5, 8, 8)], 0.01, 10.0, 1)
+    params = torch.empty((2, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tgr.gather_resample(torch.empty((128, 256), device="meta"), idx, idx, params)
+    with pytest.raises(ValueError, match="CUDA"):
+        tst.score_block_top2_cuda(torch.zeros(320), [(5, 8, 8)], 0.01, 10.0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        origin = torch.zeros(2, dtype=torch.int32)
+        tgr.gather_resample_cuda(torch.zeros(128, 256), origin, origin, torch.zeros(2, 4))
 
 
 def test_config_from_jax_fields_round_trips():
@@ -95,7 +119,15 @@ def test_octave_counts_match_jax():
         assert tconfig.octave_sizes(n, 3) == jconfig.octave_sizes(n, 3)
 
 
-def test_native_loader_matches_jax_package(tmp_path):
+def test_native_loader_matches_jax_package(tmp_path, monkeypatch):
+    # Two native results, never a native one against a NumPy fallback: the
+    # port's loader first, then the JAX loader, with a failure it may have
+    # cached in this process (a half-written library) cleared.
+    assert tnative._load() is not None, tnative._build_error
+    if jnative._load() is None:
+        monkeypatch.setattr(jnative, "_lib", None)
+        monkeypatch.setattr(jnative, "_build_error", None)
+    assert jnative._load() is not None, jnative._build_error
     np.testing.assert_array_equal(tnative.synth_frame(96, 2, seed=4),
                                   jnative.synth_frame(96, 2, seed=4))
     rv, tv = np.array([0.0, 0.1, 0.0]), np.array([0.2, 0.0, 0.0])
@@ -121,9 +153,59 @@ def test_kernel_build_fails_loudly(monkeypatch, tmp_path):
         _build.build(force=True)
 
 
+def test_native_loader_survives_simultaneous_first_loads(tmp_path):
+    """Four processes load the port's native library from one fresh copy of
+    native/ at the same moment: all get the library and equal frames."""
+    for name in ("Makefile", "sift_host.cpp"):
+        shutil.copy(REPO / "native" / name, tmp_path / name)
+    code = textwrap.dedent("""
+        import hashlib, sys, time
+        from pathlib import Path
+        from sift_parallel_optimization_tpu_torch.utils import native
+        d = Path(sys.argv[1])
+        native._NATIVE_DIR = d
+        (d / f"ready.{sys.argv[2]}").touch()
+        t0 = time.time()
+        while len(list(d.glob("ready.*"))) < 4 and time.time() - t0 < 120:
+            time.sleep(0.001)
+        frame = native.synth_frame(64, 1)
+        print(native._lib is not None, hashlib.sha256(frame.tobytes()).hexdigest())
+    """)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path), str(i)], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0] * 4, outs
+    lines = {out.strip() for out, _err in outs}
+    assert len(lines) == 1, outs
+    native, digest = lines.pop().split()
+    assert native == "True", outs
+    assert digest == hashlib.sha256(tnative.synth_frame(64, 1).tobytes()).hexdigest()
+    assert sorted(p.name for p in tmp_path.glob("libsift_host.so*")) == ["libsift_host.so"]
+
+
+def test_native_loader_rebuilds_a_half_written_library(tmp_path, monkeypatch):
+    """A library another process's build left half-written (newer than its source,
+    so not stale) fails to open: the loader rebuilds it under the lock and
+    opens it, instead of caching the failure."""
+    for name in ("Makefile", "sift_host.cpp"):
+        shutil.copy(REPO / "native" / name, tmp_path / name)
+    assert tnative._load() is not None
+    real = (REPO / "native" / "libsift_host.so").read_bytes()
+    (tmp_path / "libsift_host.so").write_bytes(real[:64])   # the ELF header alone
+    monkeypatch.setattr(tnative, "_NATIVE_DIR", tmp_path)
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_build_error", None)
+    assert tnative._load() is not None, tnative._build_error
+    frame = tnative.synth_frame(64, 1)
+    monkeypatch.undo()
+    np.testing.assert_array_equal(frame, tnative.synth_frame(64, 1))
+
+
 def test_kernel_sources_hash_covers_every_source():
     names = [p.name for p in _build._sources()]
-    assert names == ["patch_gather.cu", "reference_dog.cu"]
+    assert names == ["gather_resample.cu", "patch_gather.cu", "reference_dog.cu",
+                     "score_tables.cu"]
     assert _build.source_hash() == _build.source_hash()
     assert len(_build.source_hash()) == 64
 
