@@ -7,11 +7,15 @@ Builds the port's CUDA kernels from ``sift_parallel_optimization_tpu_torch/
 csrc``, checks each against its plain PyTorch version on the card, drives
 the entry points (the REFERENCE DoG pyramid at 512^2, S=2; the SIFT
 frontend at 512^2/K=512 and 1024^2/K=2048, S=3, on its default block-reduce
-detection branch; and the frontend with fused descriptor sampling at
-512^2/K=512) and checks their outputs against the port's plain run on CPU
-tensors. Each phase prints one line; then a JSON line of the kernels, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
-failure exits nonzero without that line. Imports nothing of JAX.
+detection branch; the frontend with fused descriptor sampling at
+512^2/K=512; the batched frontend on 8 frames at both sizes; a matched and
+verified frame pair; and the two-view bootstrap with a PnP registration of a
+third view at 2048 keypoint slots per frame) and checks their outputs
+against the port's per-frame and CPU runs and against the truth of the
+synthetic scenes. Each phase prints one line; then a JSON line of the
+kernels, the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. Any failure exits nonzero without that line. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ SRC_K4 = "sift_parallel_optimization_tpu_torch/csrc/gather_resample.cu"
 # file:line of the TPU kernels each CUDA kernel replaces.
 REPLACES_K1 = "sift_parallel_optimization_tpu/ops/scale_space_pallas.py:86"
 REPLACES_K2 = "sift_parallel_optimization_tpu/ops/patch_gather.py:66"
+REPLACES_K2B = "sift_parallel_optimization_tpu/ops/patch_gather.py:96"
 REPLACES_K3 = "sift_parallel_optimization_tpu/ops/detect_fused.py:209"
 REPLACES_K4 = "sift_parallel_optimization_tpu/ops/descriptor_fused.py:138"
 
@@ -50,7 +55,43 @@ MATCH_PX, MATCH_FRAC, DESC_L2, DESC_FRAC = 0.05, 0.99, 0.02, 0.99
 K4_RTOL, K4_ATOL = 1e-5, 1e-6
 # Keypoints of the block-reduce branch found by the exact one, frame 0.
 RECALL_MIN = 0.95
-FRAMES = 8
+# Frames of the per-frame frontend paths; the batched path takes BATCH frames.
+FRAMES = 4
+BATCH = 8
+# Batched frontend vs the per-frame one on the card, frame by frame: the
+# batched matrix products may sum in another order, which can move a
+# coordinate by ~1e-5 px. Every slot must agree (valid, octave and scale
+# equal; x, y, sigma within 1e-3) and >= 99% of the valid slots' descriptors
+# must lie within L2 0.02.
+BATCH_XY_ATOL, BATCH_SLOT_FRAC = 1e-3, 1.0
+# The pair phase: frames 0 and 7 of the 512^2 stream (blob centres move by
+# -0.9 px per frame in x), the gates of tests/test_matching.py's pair test.
+PAIR_FRAMES, PAIR_SHIFT = (0, 7), (-6.3, 0.0)
+# The two-view phase: 2048 keypoint slots per frame, two scenes of (width,
+# height, focal length, point box low/high, three (rvec, tvec) poses). init_two_view
+# keeps the winning MINIMAL sample's F (no refit over its inliers), so under
+# 0.2 px noise the translation direction is only as good as the baseline is
+# wide against the pixel: the gated scene is a 2048 x 1536 camera with a
+# 1.5-unit baseline (direction within 3 deg); the scene of tests/test_sfm.py
+# (400 x 300, f = 400, baseline 0.35) is run beside it, its readings printed
+# and held to what that geometry supports with 30% outliers (rotation 2 deg,
+# direction 30 deg; a CPU run of it reads 0.7 and 9.6 deg).
+TV_SLOTS, TV_PTS_PER_FRAME, TV_OUTLIERS, TV_NOISE_PX = 2048, 512, 0.3, 0.2
+TV_WIDE = (2048, 1536, 1200.0, (-5, -4, 3), (5, 4, 12), (
+    ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0)),
+    ((0.02, 0.12, -0.01), (-1.5, 0.075, 0.15)),
+    ((-0.01, 0.2, 0.02), (-2.7, -0.075, 0.375))))
+TV_NARROW = (400, 300, 400.0, (-3, -3, 6), (3, 3, 12), tuple(
+    ((0.0, 0.05 * i, 0.0), (-0.35 * i, 0.02 * i, 0.05 * i)) for i in range(3)))
+# Landmarks pass init_two_view's own 2 px reprojection gate, so the worst
+# kept error is below 2 by construction (it reads just under 2 whenever
+# more candidates pass than the map has room for); what the pose and the
+# points add is the MEDIAN error, which follows the winning minimal sample's
+# pose error: 0.85 px in a CPU run of this scene, held to 1.5.
+TV_MEDIAN_REPROJ_PX = 1.5
+# Published peaks of one H100 SXM: HBM bytes/s and fp32 FLOP/s outside the
+# tensor cores (every kernel here computes in fp32 on the CUDA cores).
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 FRONTEND_CONFIGS = ((512, 3, 512), (1024, 3, 2048))
 FUSED_CONFIG = (512, 3, 512)
 # The kernels each path of the main path must launch.
@@ -59,6 +100,8 @@ PATH_KERNELS = {
     512: ("patch_gather", "score_tables"),
     1024: ("patch_gather", "score_tables"),
     "fused": ("score_tables", "gather_resample"),
+    "batched 512": ("patch_gather_batched", "score_tables"),
+    "batched 1024": ("patch_gather_batched", "score_tables"),
 }
 THR = 0.04 / 3          # detect.CONTRAST_THRESHOLD / S
 EDGE_RATIO = 10.0
@@ -73,8 +116,12 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One line per phase, ending in the seconds since the script began."""
+    print(f"[{name}] {msg} [t+{time.perf_counter() - T_START:.0f} s]", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -136,48 +183,71 @@ def gather_origins(torch, rng, k, r, c, rows, cols, dev):
     return (torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev))
 
 
-def frontend_dogs(torch, dev, size, S):
-    """The DoG octaves the frontend detects on for frame 0 of a size^2 stream."""
+def frontend_dogs(torch, dev, size, S, n_frames):
+    """The DoG octaves the frontend detects on for the first ``n_frames``
+    frames of a size^2 stream: one (n_frames, S+2, H_o, W_o) tensor per octave."""
     from sift_parallel_optimization_tpu_torch.models import frontend
     from sift_parallel_optimization_tpu_torch.utils import native
 
     fe = frontend.SiftFrontend(frontend.sift_config(size, S=S), device=dev)
-    img = torch.from_numpy(native.synth_frame(size, 0, seed=0)).to(dev)
-    return [g[1:] - g[:-1] for g in fe.pyramid(img)]
+    batch = torch.stack([torch.from_numpy(native.synth_frame(size, i, seed=0))
+                         for i in range(n_frames)]).to(dev)
+    return [g[:, 1:] - g[:, :-1] for g in fe.pyramid(batch)]
+
+
+def flat_frames(torch, dogs):
+    """(B, S+2, H_o, W_o) octaves -> the (B, L) flat DoG, each frame's octaves
+    back to back, and the octave shapes: what detection hands to kernel 3."""
+    b = dogs[0].shape[0]
+    return (torch.cat([d.reshape(b, -1) for d in dogs], dim=1).contiguous(),
+            [tuple(d.shape[1:]) for d in dogs])
 
 
 def kernel3_checks(torch, st, dev):
-    """Both entry points vs their plain versions, bitwise, on random DoG
-    stacks and on the frontend's own octaves. Returns (cases, max abs
-    error, stacks)."""
+    """Both entry points vs their plain versions, bitwise: the rows tables on
+    random DoG stacks and on the frontend's octaves; the block top-2 tables
+    on the same, one frame a launch (the per-frame frontend's form), and on
+    the BATCH frames of both frontend sizes in one launch (the batched
+    frontend's form), for refine 0 and 1. Returns (cases, max abs error,
+    random stacks, {size: (flat (BATCH, L), shapes)})."""
     import numpy as np
 
     stacks = {f"random {s[1]}x{s[2]}": [torch.from_numpy(
-        (0.05 * np.random.default_rng(s[1]).normal(size=s)).astype(np.float32)).to(dev)]
+        (0.05 * np.random.default_rng(s[1]).normal(size=s)).astype(np.float32)).to(dev)[None]]
         for s in ((5, 512, 512), (5, 1024, 1024), (5, 250, 370))}
+    flats = {}
     for size in (512, 1024):
-        stacks[f"frontend {size}^2 octaves"] = frontend_dogs(torch, dev, size, 3)
+        dogs = frontend_dogs(torch, dev, size, 3, BATCH)
+        flats[size] = flat_frames(torch, dogs)
+        stacks[f"frontend {size}^2 octaves"] = [d[:1] for d in dogs]
     cases, err = 0, 0.0
-    for name, dogs in stacks.items():
-        for dog in dogs:
-            got = st.score_tables_rows_cuda(dog.contiguous(), THR, EDGE_RATIO)
-            want = st.score_tables_rows_plain(dog, THR, EDGE_RATIO)
-            torch.cuda.synchronize()
-            check(all(torch.equal(g, w) for g, w in zip(got, want)),
-                  f"kernel 3 rows not bitwise equal to plain on {name} {tuple(dog.shape)}")
-            err = max(err, max_err(got, want))
-            cases += 1
-        flat = torch.cat([d.reshape(-1) for d in dogs])
-        shapes = [tuple(d.shape) for d in dogs]
+
+    def hold(flat, shapes, name):
+        nonlocal cases, err
         for refine in (0, 1):
             got = st.score_block_top2_cuda(flat, shapes, THR, EDGE_RATIO, refine)
             want = st.score_block_top2_plain(flat, shapes, THR, EDGE_RATIO, refine)
             torch.cuda.synchronize()
-            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+            check(all(g.shape[0] == flat.shape[0] and torch.equal(g, w)
+                      for g, w in zip(got, want)),
                   f"kernel 3 block top-2 not bitwise equal to plain on {name}, refine {refine}")
             err = max(err, max_err(got, want))
             cases += 1
-    return cases, err, stacks
+
+    for name, dogs in stacks.items():
+        for dog in dogs:
+            got = st.score_tables_rows_cuda(dog[0].contiguous(), THR, EDGE_RATIO)
+            want = st.score_tables_rows_plain(dog[0], THR, EDGE_RATIO)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"kernel 3 rows not bitwise equal to plain on {name} {tuple(dog.shape[1:])}")
+            err = max(err, max_err(got, want))
+            cases += 1
+        hold(*flat_frames(torch, dogs), f"{name}, one frame")
+    for size, (flat, shapes) in flats.items():
+        check(flat.shape[0] == BATCH, f"kernel 3: {size}^2 batch shape")
+        hold(flat, shapes, f"the {BATCH} frames of the {size}^2 stream in one launch")
+    return cases, err, stacks, flats
 
 
 def kernel4_inputs(torch, rng, k, atlas, dev):
@@ -209,10 +279,18 @@ def device_profile(torch, fn, *args, iters=10):
     return n / iters, ms / iters
 
 
-def frame_ms(torch, fe, frames):
-    """Median and max host ms of a synchronized frame over two passes."""
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    """The least ms the card could take: bytes over the memory rate or
+    operations over the fp32 rate, whichever is larger, and which it is."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+
+
+def frame_ms(torch, fe, frames, passes=2):
+    """Median and max host ms of a synchronized frame over ``passes`` passes."""
     samples = []
-    for _ in range(2):
+    for _ in range(passes):
         for f in frames:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -225,21 +303,23 @@ def frame_ms(torch, fe, frames):
 def counted(torch, counters, fn):
     """Run one path with every launch counter set to 0 just before it;
     returns (its output, each kernel's launches during it)."""
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: mod.LAUNCHES for name, mod in counters.items()}
+    return out, {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
 
 
 def drive_main_path(torch, dev, frames, counters):
     """The port's entry points, as a user calls them, each path counted on
     its own: the headline pyramid, the frontend (default branches) at both
-    sizes, and the frontend with fused descriptor sampling. Returns (pyramid,
-    features, per-path launch counts)."""
+    sizes, the frontend with fused descriptor sampling, and the batched
+    frontend on BATCH frames at both sizes. Returns (pyramid, features,
+    per-path launch counts)."""
     from sift_parallel_optimization_tpu_torch.core.pyramid_ref import reference_dog_pyramid
     from sift_parallel_optimization_tpu_torch.models import descriptor
     from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+    from sift_parallel_optimization_tpu_torch.parallel.frontend import batched_extract_features
 
     launches = {}
     pyr, launches["headline"] = counted(
@@ -247,13 +327,19 @@ def drive_main_path(torch, dev, frames, counters):
     feats = {}
     for size, S, k in FRONTEND_CONFIGS:
         fe = SiftFrontend(sift_config(size, S=S), max_keypoints=k, device=dev)
-        out, launches[size] = counted(torch, counters, lambda: [fe(f) for f in frames[size]])
+        out, launches[size] = counted(
+            torch, counters, lambda: [fe(f) for f in frames[size][:FRAMES]])
         feats[size] = (fe, out)
+        batch = torch.stack(frames[size])
+        out, launches[f"batched {size}"] = counted(
+            torch, counters, lambda: batched_extract_features(batch, sift_config(size, S=S), k))
+        feats[f"batched {size}"] = (fe, out)
     size, S, k = FUSED_CONFIG
     fe = SiftFrontend(sift_config(size, S=S), max_keypoints=k, device=dev)
     descriptor.USE_FUSED_SAMPLING = True
     try:
-        out, launches["fused"] = counted(torch, counters, lambda: [fe(f) for f in frames[size]])
+        out, launches["fused"] = counted(
+            torch, counters, lambda: [fe(f) for f in frames[size][:FRAMES]])
         feats["fused"] = (fe, out)
     finally:
         descriptor.USE_FUSED_SAMPLING = False
@@ -293,6 +379,302 @@ def compare_with_cpu(torch, gpu, cpu, size):
     l2 = torch.linalg.vector_norm(cd[matched] - gd[j[matched]], dim=1)
     dfrac = float((l2 <= DESC_L2).float().mean()) if len(l2) else 0.0
     return frac, dfrac, int(cv.sum()), int(gv.sum())
+
+
+def frame_of(feats, i):
+    """Frame i of Features that carry a leading batch axis."""
+    return type(feats)(type(feats.keypoints)(*[f[i] for f in feats.keypoints]),
+                       feats.descriptors[i])
+
+
+def batched_gather_origins(torch, rng, b, k, r, c, rows, cols, dev):
+    """(B, K) aligned origins with the edge cases of the batched gather: the
+    last legal row and column of the LAST frame, and in a middle frame a
+    negative origin (counts from that frame's own end) and an over-range one
+    (clamps into that frame, not into the next one's rows)."""
+    ys = rng.integers(0, (r - rows) // 8 + 1, size=(b, k)).astype("int32") * 8
+    xs = rng.integers(0, (c - cols) // 128 + 1, size=(b, k)).astype("int32") * 128
+    ys[-1, -1], xs[-1, -1] = r - rows, c - cols
+    ys[-1, -2], xs[-1, -2] = r - rows, 0
+    ys[b // 2, 0], xs[b // 2, 0] = -8, -128
+    ys[b // 2, 1], xs[b // 2, 1] = r + 64, c + 128
+    return torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev)
+
+
+def gather_index_call(torch, atlas, ys, xs, rows, cols):
+    """The one PyTorch call nearest to the gather kernels: advanced indexing
+    with index tensors built beforehand (the plain versions build them and
+    then make this call). Returns a function of no arguments."""
+    r, c = atlas.shape[-2:]
+    y0, x0 = ys.long(), xs.long()
+    y0 = torch.where(y0 < 0, y0 + r, y0).clamp(0, r - rows)
+    x0 = torch.where(x0 < 0, x0 + c, x0).clamp(0, c - cols)
+    ri = (y0[..., None] + torch.arange(rows, device=atlas.device))[..., :, None]
+    ci = (x0[..., None] + torch.arange(cols, device=atlas.device))[..., None, :]
+    if atlas.dim() == 2:
+        return lambda: atlas[ri, ci]
+    bi = torch.arange(atlas.shape[0], device=atlas.device)[:, None, None, None]
+    return lambda: atlas[bi, ri, ci]
+
+
+def compare_frames(torch, got, ref):
+    """One frame of the batched frontend against the per-frame frontend on
+    the card: (fraction of slots that agree, fraction of the agreeing valid
+    slots whose descriptors lie within DESC_L2)."""
+    g, r = got.keypoints, ref.keypoints
+    same = (g.valid == r.valid) & (g.octave == r.octave) & (g.scale == r.scale)
+    for f in ("x", "y", "sigma"):
+        same &= (getattr(g, f) - getattr(r, f)).abs() <= BATCH_XY_ATOL
+    both = same & r.valid
+    l2 = torch.linalg.vector_norm(got.descriptors[both] - ref.descriptors[both], dim=1)
+    dfrac = float((l2 <= DESC_L2).float().mean()) if l2.numel() else 1.0
+    return float(same.float().mean()), dfrac
+
+
+def call_times(torch, fn, iters=20):
+    """(median ms per call between CUDA events, device ops, device ms) of fn()."""
+    from sift_parallel_optimization_tpu_torch.utils.profiling import cuda_time_ms
+
+    return (cuda_time_ms(fn, iters=iters),) + device_profile(torch, fn, iters=5)
+
+
+def fmt_times(times: dict) -> str:
+    return "; ".join(f"{name} {ms:.3f} ms/call (device {dms:.3f} ms in {n:.0f} ops)"
+                     for name, (ms, n, dms) in times.items())
+
+
+def rodrigues_np(w):
+    theta = float(np.linalg.norm(w))
+    if theta < 1e-12:
+        return np.eye(3)
+    k = np.asarray(w, np.float64) / theta
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(theta) * kx + (1 - np.cos(theta)) * (kx @ kx)
+
+
+def rotation_angle_deg(Ra, Rb) -> float:
+    return float(np.degrees(np.arccos(np.clip((np.trace(Ra.T @ Rb) - 1) / 2, -1, 1))))
+
+
+def twoview_scene(scene, seed=0):
+    """Features of three cameras looking at one seeded 3-D scene, as
+    tests/test_sfm.py's ``_make_features`` builds them: TV_SLOTS points in
+    front of all cameras, one unit random 128-d descriptor per point shared
+    by the views (plus 0.03 noise), TV_NOISE_PX pixel noise; in view 1 the
+    first TV_OUTLIERS of the slots are outliers (the point's descriptor at a
+    random pixel). Returns (numpy feature dicts, poses, intrinsics, number of
+    outlier slots)."""
+    TV_W, TV_H, TV_F, lo, hi, poses = scene
+    rng = np.random.default_rng(seed)
+    n = TV_SLOTS
+    k_np = np.array([[TV_F, 0, TV_W / 2], [0, TV_F, TV_H / 2], [0, 0, 1]], np.float32)
+    pts = rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
+    descs = rng.normal(size=(n, 128)).astype(np.float32)
+    descs /= np.linalg.norm(descs, axis=-1, keepdims=True)
+    poses = [(np.array(rv), np.array(tv)) for rv, tv in poses]
+    n_out = int(TV_OUTLIERS * n)
+    feats = []
+    for i, (rv, tv) in enumerate(poses):
+        pc = pts @ rodrigues_np(rv).T.astype(np.float32) + tv.astype(np.float32)
+        uv = ((pc / pc[:, 2:]) @ k_np.T)[:, :2]
+        uv = uv + rng.normal(size=uv.shape).astype(np.float32) * TV_NOISE_PX
+        vis = ((pc[:, 2] > 0.5) & (uv[:, 0] > 5) & (uv[:, 0] < TV_W - 5)
+               & (uv[:, 1] > 5) & (uv[:, 1] < TV_H - 5))
+        if i == 1:
+            uv[:n_out] = rng.uniform([5, 5], [TV_W - 5, TV_H - 5], size=(n_out, 2))
+        d = descs + rng.normal(size=descs.shape).astype(np.float32) * 0.03
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        feats.append({
+            "keypoints": {
+                "x": uv[:, 0].astype(np.float32), "y": uv[:, 1].astype(np.float32),
+                "sigma": np.full(n, 2.0, np.float32), "score": np.ones(n, np.float32),
+                "orientation": np.zeros(n, np.float32), "octave": np.zeros(n, np.int32),
+                "scale": np.ones(n, np.int32), "valid": vis,
+            },
+            "descriptors": d.astype(np.float32),
+        })
+    return feats, poses, k_np, n_out
+
+
+def pair_phase(torch, dev, feats):
+    """Frames PAIR_FRAMES of the batched 512^2 result -> match -> points ->
+    RANSAC homography on the card, against the known shift and against the
+    same calls on CPU copies with the same injected draws."""
+    from sift_parallel_optimization_tpu_torch.models import matching as tm
+
+    def chain(f0, f1, idx=None, gen=None):
+        m = tm.match_descriptors(f0.descriptors, f1.descriptors, f0.keypoints.valid,
+                                 f1.keypoints.valid)
+        p1, p2, mask = tm.matched_points(f0.keypoints, f1.keypoints, m)
+        if idx is None:
+            idx = tm._sample_indices(gen, mask, 256, 4)
+        return p1, p2, mask, idx, tm.ransac_homography(None, p1, p2, mask, 256, 1.5,
+                                                       sample_idx=idx)
+
+    f0, f1 = (frame_of(feats, i) for i in PAIR_FRAMES)
+    seeded = lambda: torch.Generator(device=dev).manual_seed(0)
+    p1, p2, mask, idx, res = chain(f0, f1, gen=seeded())
+    torch.cuda.synchronize()
+    n_pairs, n_inl = int(mask.sum()), int(res.n_inliers)
+    check(n_pairs >= 10, f"pair: only {n_pairs} pair-valid matches")
+    check(n_inl >= n_pairs * 2 // 3, f"pair: {n_inl} inliers of {n_pairs} matches")
+    check(bool(mask[idx].all()), "pair: a draw fell on an invalid slot")
+    h = (res.model / res.model[2, 2]).cpu().numpy()
+    check(abs(h[0, 2] - PAIR_SHIFT[0]) < 1.0 and abs(h[1, 2] - PAIR_SHIFT[1]) < 1.0,
+          f"pair: translation {h[0, 2]:.3f}, {h[1, 2]:.3f} is not {PAIR_SHIFT}")
+    check(abs(h[0, 0] - 1) < 0.05 and abs(h[1, 1] - 1) < 0.05, f"pair: diagonal of {h}")
+    # The generator path gives the same draws from the same seed.
+    again = tm.ransac_homography(seeded(), p1, p2, mask, 256, 1.5)
+    check(torch.equal(again.inliers, res.inliers), "pair: seeded draws are not reproducible")
+    cpu_f = [type(f)(type(f.keypoints)(*[t.cpu() for t in f.keypoints]), f.descriptors.cpu())
+             for f in (f0, f1)]
+    cpu = chain(*cpu_f, idx=idx.cpu())[4]
+    differ = float((cpu.inliers != res.inliers.cpu()).float().mean())
+    check(differ <= 0.01, f"pair: inlier masks of card and CPU differ in {differ:.4f} of slots")
+    times = {
+        "match_descriptors": call_times(torch, lambda: tm.match_descriptors(
+            f0.descriptors, f1.descriptors, f0.keypoints.valid, f1.keypoints.valid)),
+        "ransac_homography": call_times(torch, lambda: tm.ransac_homography(
+            seeded(), p1, p2, mask, 256, 1.5)),
+    }
+    phase("pair", f"frames {PAIR_FRAMES} of the batched 512^2 result: {n_pairs} pair-valid "
+          f"matches, {n_inl} inliers (256 hypotheses, threshold 1.5), H translation "
+          f"({h[0, 2]:.3f}, {h[1, 2]:.3f}) vs {PAIR_SHIFT}, diagonal ({h[0, 0]:.4f}, "
+          f"{h[1, 1]:.4f}); CPU with the same draws: masks differ in {differ:.4f} of slots; "
+          + fmt_times(times))
+
+
+def twoview_phase(torch, dev):
+    """init_two_view on a synthetic two-camera scene at TV_SLOTS slots per
+    frame, then ransac_pnp of a third view, against the truth and against
+    the port's CPU run under the same injected draws (the TV_WIDE scene); and
+    init_two_view on the TV_NARROW scene against the truth."""
+    from sift_parallel_optimization_tpu_torch.models import geometry as tgeo
+    from sift_parallel_optimization_tpu_torch.models import matching as tm
+    from sift_parallel_optimization_tpu_torch.models import sfm
+    from sift_parallel_optimization_tpu_torch.models.frontend import features_from_numpy
+
+    B = TV_PTS_PER_FRAME
+    seeded = lambda: torch.Generator(device=dev).manual_seed(0)
+
+    def run(arrays, k_np, device, idx=None, pnp_idx=None, third=True):
+        f = [features_from_numpy(a, device=device) for a in arrays]
+        K = torch.from_numpy(k_np).to(device)
+        m0 = sfm.empty_map(3, B, device=device)
+        match = tm.match_descriptors(f[0].descriptors, f[1].descriptors,
+                                     f[0].keypoints.valid, f[1].keypoints.valid)
+        p0, p1, pair_ok = tm.matched_points(f[0].keypoints, f[1].keypoints, match)
+        if idx is None:
+            idx = tm._sample_indices(seeded(), pair_ok, sfm.BOOTSTRAP_HYPOTHESES, 8)
+        m, used_a, _used_b = sfm.init_two_view(None, f[0], f[1], K, m0, B,
+                                               return_used_pair=True, sample_idx=idx)
+        out = dict(f=f, K=K, m0=m0, m=m, used_a=used_a, idx=idx, p0=p0, p1=p1,
+                   pair_ok=pair_ok)
+        if not third:
+            return out
+        m2 = tm.match_descriptors(m.pt_desc, f[2].descriptors, m.pt_valid, f[2].keypoints.valid)
+        pts2d = torch.stack([f[2].keypoints.x[m2.idx2], f[2].keypoints.y[m2.idx2]], -1)
+        pnp_mask = m2.valid & f[2].keypoints.valid[m2.idx2]
+        if pnp_idx is None:
+            pnp_idx = tm._sample_indices(seeded(), pnp_mask, 128, 6)
+        cam, inl, n_inl = sfm.ransac_pnp(None, m.points, pts2d, pnp_mask, K, 128,
+                                         sample_idx=pnp_idx)
+        out.update(pnp_idx=pnp_idx, cam=cam, n_inl=n_inl, pts2d=pts2d, pnp_mask=pnp_mask)
+        return out
+
+    def against_truth(name, res, arrays, poses, n_out):
+        """Pose (unit baseline: the scale is free) and landmarks of one
+        bootstrap against the scene: (rotation deg, direction deg, landmarks
+        kept, true inliers, median and worst reprojection px)."""
+        m = res["m"]
+        check(m.cam_valid.tolist() == [True, True, False], f"twoview {name}: camera slots")
+        rv1, tv1 = poses[1]
+        rot_err = rotation_angle_deg(rodrigues_np(m.rvecs[1].cpu().numpy()), rodrigues_np(rv1))
+        t_est = m.tvecs[1].cpu().numpy().astype(np.float64)
+        dir_err = float(np.degrees(np.arccos(np.clip(
+            t_est @ tv1 / np.linalg.norm(t_est) / np.linalg.norm(tv1), -1, 1))))
+        # Landmarks: the map keeps up to B of the true inliers.
+        true_inl = arrays[0]["keypoints"]["valid"] & arrays[1]["keypoints"]["valid"]
+        true_inl[:n_out] = False
+        kept = int(m.pt_valid.sum())
+        used = res["used_a"].cpu().numpy()
+        possible = min(B, int(true_inl.sum()))
+        check(kept >= 0.8 * possible and int(used.sum()) == kept,
+              f"twoview {name}: kept {kept} landmarks of {possible} possible")
+        check(int((used & true_inl).sum()) >= 0.99 * kept,
+              f"twoview {name}: {int((used & ~true_inl).sum())} kept landmarks are not true "
+              f"inliers")
+        zero = torch.zeros(3, device=dev)
+        e0 = tgeo.reprojection_error(tgeo.Camera(zero, zero), m.points[:B], m.obs.uv[:B],
+                                     res["K"])
+        e1 = tgeo.reprojection_error(tgeo.Camera(m.rvecs[1], m.tvecs[1]), m.points[:B],
+                                     m.obs.uv[B:2 * B], res["K"])
+        err = torch.maximum(e0, e1)[m.pt_valid[:B]]
+        return rot_err, dir_err, kept, int(true_inl.sum()), float(err.median()), float(err.max())
+
+    # The narrow scene: readings at the geometry of tests/test_sfm.py.
+    arrays, poses, k_np, n_out = twoview_scene(TV_NARROW)
+    narrow = against_truth("narrow", run(arrays, k_np, dev, third=False), arrays, poses, n_out)
+    check(narrow[0] < 2.0 and narrow[1] < 30.0,
+          f"twoview narrow: rotation {narrow[0]:.3f} deg, direction {narrow[1]:.3f} deg")
+
+    arrays, poses, k_np, n_out = twoview_scene(TV_WIDE)
+    gpu = run(arrays, k_np, dev)
+    torch.cuda.synchronize()
+    m = gpu["m"]
+    rot_err, dir_err, kept, n_true, median, worst = against_truth(
+        "wide", gpu, arrays, poses, n_out)
+    check(rot_err < 1.0, f"twoview: rotation {rot_err:.3f} deg from the truth")
+    check(dir_err < 3.0, f"twoview: translation direction {dir_err:.3f} deg from the truth")
+    check(worst < 2.0 and median < TV_MEDIAN_REPROJ_PX,
+          f"twoview: landmark reprojection error median {median:.3f}, worst {worst:.3f} px")
+    tv1 = poses[1][1]
+    # Third view by PnP against those landmarks.
+    rv2, tv2 = poses[2]
+    scale = 1.0 / np.linalg.norm(tv1)
+    cam = gpu["cam"]
+    pnp_rot = rotation_angle_deg(rodrigues_np(cam.rvec.cpu().numpy()), rodrigues_np(rv2))
+    pnp_t = float(np.linalg.norm(cam.tvec.cpu().numpy() - tv2 * scale)
+                  / np.linalg.norm(tv2 * scale))
+    check(pnp_rot < 1.0 and pnp_t < 0.02,
+          f"twoview: PnP pose {pnp_rot:.3f} deg, {pnp_t:.4f} of |t| from the truth")
+    # The port's CPU run under the same draws.
+    cpu = run(arrays, k_np, "cpu", idx=gpu["idx"].cpu(), pnp_idx=gpu["pnp_idx"].cpu())
+    check(torch.equal(cpu["m"].cam_valid, m.cam_valid.cpu()), "twoview: cam_valid, card vs CPU")
+    pt_diff = float((cpu["m"].pt_valid != m.pt_valid.cpu()).float().mean())
+    check(pt_diff < 0.01, f"twoview: pt_valid of card and CPU differ in {pt_diff:.4f} of slots")
+    pose_diff = max(float((cpu["m"].rvecs - m.rvecs.cpu()).abs().max()),
+                    float((cpu["m"].tvecs - m.tvecs.cpu()).abs().max()))
+    check(pose_diff < 1e-3, f"twoview: pose of card and CPU differ by {pose_diff:.2e}")
+    f, K = gpu["f"], gpu["K"]
+    E = tgeo.essential_from_fundamental(
+        tm.ransac_fundamental(None, gpu["p0"], gpu["p1"], gpu["pair_ok"], 512,
+                              sample_idx=gpu["idx"]).model, K)
+    times = {
+        "match_descriptors": call_times(torch, lambda: tm.match_descriptors(
+            f[0].descriptors, f[1].descriptors, f[0].keypoints.valid, f[1].keypoints.valid)),
+        "ransac_fundamental": call_times(torch, lambda: tm.ransac_fundamental(
+            seeded(), gpu["p0"], gpu["p1"], gpu["pair_ok"], 512)),
+        "recover_pose": call_times(torch, lambda: tgeo.recover_pose(
+            E, gpu["p0"], gpu["p1"], K, gpu["pair_ok"])),
+        "init_two_view": call_times(torch, lambda: sfm.init_two_view(
+            seeded(), f[0], f[1], K, gpu["m0"], B)),
+        "ransac_pnp": call_times(torch, lambda: sfm.ransac_pnp(
+            seeded(), m.points, gpu["pts2d"], gpu["pnp_mask"], K, 128)),
+    }
+    phase("twoview", f"{TV_SLOTS} slots/frame, {n_out} outliers, {TV_NOISE_PX} px noise, 512 "
+          f"hypotheses; {TV_NARROW[0]}x{TV_NARROW[1]} f={TV_NARROW[2]:.0f} baseline 0.35 (the "
+          f"scene of tests/test_sfm.py): rotation {narrow[0]:.3f} deg, translation direction "
+          f"{narrow[1]:.3f} deg, {narrow[2]} landmarks of {narrow[3]} true inliers, reprojection "
+          f"median {narrow[4]:.3f} px, worst {narrow[5]:.3f}; {TV_WIDE[0]}x{TV_WIDE[1]} "
+          f"f={TV_WIDE[2]:.0f} baseline 1.5: rotation {rot_err:.3f} deg and translation "
+          f"direction {dir_err:.3f} deg "
+          f"from the truth; {kept} landmarks kept of {n_true} true inliers "
+          f"(capacity {B}), reprojection median {median:.3f} px (gate {TV_MEDIAN_REPROJ_PX}), "
+          f"worst {worst:.3f} (init_two_view's own gate 2); PnP of view 3 (128 hypotheses): "
+          f"{int(gpu['n_inl'])} inliers of {int(gpu['pnp_mask'].sum())}, {pnp_rot:.3f} deg, "
+          f"{pnp_t:.4f} of |t|; CPU with the same draws: pt_valid differ in {pt_diff:.4f} of "
+          f"slots, pose by {pose_diff:.2e}; " + fmt_times(times))
 
 
 def main() -> int:
@@ -360,10 +742,12 @@ def main() -> int:
     # 4. Kernel 2 vs its plain version on the card, on the frontend's atlases.
     rng = np.random.default_rng(0)
     rows, cols = 96, 256
-    k2_ms, k2_err = {}, 0.0
+    k2_ms, k2_err, k2_lib = {}, 0.0, {}
     for size, k in ((512, 512), (1024, 2048)):
         atlas = frontend_atlas(torch, dev, size, 3)
         ys, xs = gather_origins(torch, rng, k, atlas.shape[0], atlas.shape[1], rows, cols, dev)
+        k2_lib[k] = device_kernel_ms(gather_index_call(torch, atlas, ys, xs, rows, cols),
+                                     iters=50)
         got = pg.extract_atlas_patches_cuda(atlas, ys, xs, rows, cols)
         want = pg.extract_atlas_patches_plain(atlas, ys, xs, rows, cols)
         torch.cuda.synchronize()
@@ -378,36 +762,80 @@ def main() -> int:
             tuple(atlas.shape),
         )
     phase("kernel2", "patch_gather 96x256 bitwise equal; " + "; ".join(
-        f"K={k} atlas {a}: device kernel {m:.4f} ms, plain {p:.4f} ms; per call kernel "
-        f"{mc:.4f} ms, plain {pc:.4f} ms" for k, (m, p, mc, pc, a) in k2_ms.items()))
+        f"K={k} atlas {a}: device kernel {m:.4f} ms, plain {p:.4f} ms, one indexing call "
+        f"{k2_lib[k]:.4f} ms; per call kernel {mc:.4f} ms, plain {pc:.4f} ms"
+        for k, (m, p, mc, pc, a) in k2_ms.items()))
 
-    # 4b. Kernel 3, both entry points, vs the plain versions on the card.
-    k3_cases, k3_err, stacks = kernel3_checks(torch, st, dev)
+    # 4a. The batched gather vs its plain version on the card, on the batched
+    # frontend's own (B, R, C) atlases, plus one atlas shared by all frames.
+    k2b_ms, k2b_err, k2b_cases = {}, 0.0, 0
+    for size, k in ((512, 512), (1024, 2048)):
+        fe = SiftFrontend(sift_config(size, S=3), device=dev)
+        batch = torch.stack([torch.from_numpy(native.synth_frame(size, i, seed=0))
+                             for i in range(BATCH)]).to(dev)
+        atlases, _meta = descriptor.build_atlas(fe.pyramid(batch))
+        check(atlases.dim() == 3 and atlases.shape[0] == BATCH, "kernel 2b: atlas shape")
+        ys, xs = batched_gather_origins(torch, rng, BATCH, k, atlases.shape[1],
+                                        atlases.shape[2], rows, cols, dev)
+        for name, atlas in (("batched", atlases), ("shared", atlases[0].contiguous())):
+            got = pg.extract_atlas_patches_batched_cuda(atlas, ys, xs, rows, cols)
+            want = pg.extract_atlas_patches_batched_plain(atlas, ys, xs, rows, cols)
+            torch.cuda.synchronize()
+            check(got.shape == (BATCH, k, rows, cols) and torch.equal(got, want),
+                  f"kernel 2b ({name} atlas) not bitwise equal at {size}^2, B={BATCH}, K={k}")
+            k2b_err = max(k2b_err, float((got - want).abs().max()))
+            k2b_cases += 1
+            del got, want
+        args = (atlases, ys, xs, rows, cols)
+        k2b_ms[size] = (
+            device_kernel_ms(pg.extract_atlas_patches_batched_cuda, *args, iters=20),
+            device_kernel_ms(pg.extract_atlas_patches_batched_plain, *args, iters=20),
+            cuda_time_ms(pg.extract_atlas_patches_batched_cuda, *args, iters=20),
+            cuda_time_ms(pg.extract_atlas_patches_batched_plain, *args, iters=20),
+            device_kernel_ms(gather_index_call(torch, *args), iters=20),
+            tuple(atlases.shape), k,
+        )
+        del atlases, batch
+    phase("kernel2b", f"patch_gather_batched 96x256, B={BATCH}, bitwise equal in {k2b_cases} "
+          f"cases (per-frame and shared atlas; last legal origin of the last frame, negative "
+          f"and over-range origins in a middle frame); " + "; ".join(
+              f"{size}^2 K={k} atlases {a}: device kernel {m:.4f} ms, plain {p:.4f} ms, one "
+              f"indexing call {lib:.4f} ms; per call kernel {mc:.4f} ms, plain {pc:.4f} ms"
+              for size, (m, p, mc, pc, lib, a, k) in k2b_ms.items()))
+
+    # 4b. Kernel 3, both entry points, vs the plain versions on the card; the
+    # block top-2 tables timed in the two forms the paths launch: one frame
+    # (the per-frame frontend) and BATCH frames (the batched frontend).
+    k3_cases, k3_err, stacks, k3_flats = kernel3_checks(torch, st, dev)
     k3_ms = {}
     for name in ("random 512x512", "random 1024x1024"):
-        dog = stacks[name][0]
+        dog = stacks[name][0][0]
         k3_ms[f"rows {name}"] = tuple(
             f(g, dog, THR, EDGE_RATIO, iters=50)
             for f in (device_kernel_ms, cuda_time_ms)
             for g in (st.score_tables_rows_cuda, st.score_tables_rows_plain))
-    for size in (512, 1024):
-        dogs = stacks[f"frontend {size}^2 octaves"]
-        args = (torch.cat([d.reshape(-1) for d in dogs]), [tuple(d.shape) for d in dogs],
-                THR, EDGE_RATIO, 1)
-        k3_ms[f"block_top2 {size}^2 pyramid"] = tuple(
-            f(g, *args, iters=50)
-            for f in (device_kernel_ms, cuda_time_ms)
-            for g in (st.score_block_top2_cuda, st.score_block_top2_plain))
+    for size, (flat, shapes) in k3_flats.items():
+        for b in (1, BATCH):
+            args = (flat[:b], shapes, THR, EDGE_RATIO, 1)
+            k3_ms[f"block_top2 {size}^2 pyramid B={b}"] = tuple(
+                f(g, *args, iters=20 if b == 1 else 5)
+                for f in (device_kernel_ms, cuda_time_ms)
+                for g in (st.score_block_top2_cuda, st.score_block_top2_plain))
     phase("kernel3", f"score_tables rows + block_top2 bitwise equal to plain in {k3_cases} "
           f"cases, max_abs_err={k3_err:.3e} "
-          f"(random 512^2, 1024^2, 250x370 stacks; frontend 512^2, 1024^2 octaves); " +
+          f"(random 512^2, 1024^2, 250x370 stacks and frontend 512^2, 1024^2 octaves, one "
+          f"frame a launch; the {BATCH} frames of both frontend streams in one launch); " +
           "; ".join(f"{n}: device kernel {m:.4f} ms, plain {p:.4f} ms; per call kernel "
                     f"{mc:.4f} ms, plain {pc:.4f} ms" for n, (m, p, mc, pc) in k3_ms.items()))
 
     # 4c. Kernel 4 vs its plain version on the card, on the frontend's atlases.
-    k4_ms, k4_err = {}, 0.0
+    k4_ms, k4_err, k4_touched = {}, 0.0, {}
     for size, k in ((512, 512), (1024, 2048)):
         args = kernel4_inputs(torch, rng, k, frontend_atlas(torch, dev, size, 3), dev)
+        # Atlas bytes the kernel must read: each keypoint's sample footprint, a
+        # square of side 2 * max radius + 2, and no more than the atlas holds.
+        side = 2 * torch.ceil(args[3][:, 2:4].amax(dim=1)) + 2
+        k4_touched[k] = min(float((side * side).sum()) * 4, args[0].numel() * 4)
         got = gr.gather_resample_cuda(*args)
         want = gr.gather_resample_plain(*args)
         torch.cuda.synchronize()
@@ -431,11 +859,12 @@ def main() -> int:
     frames = {"headline": img512}
     for size, _S, _k in FRONTEND_CONFIGS:
         frames[size] = [
-            torch.from_numpy(native.synth_frame(size, i, seed=0)).to(dev) for i in range(FRAMES)
+            torch.from_numpy(native.synth_frame(size, i, seed=0)).to(dev) for i in range(BATCH)
         ]
     # Counters from the main path's runs alone, one path at a time.
-    counters = {"reference_dog_pyramid": ss, "patch_gather": pg, "score_tables": st,
-                "gather_resample": gr}
+    counters = {"reference_dog_pyramid": (ss, "LAUNCHES"), "patch_gather": (pg, "LAUNCHES"),
+                "patch_gather_batched": (pg, "LAUNCHES_BATCHED"),
+                "score_tables": (st, "LAUNCHES"), "gather_resample": (gr, "LAUNCHES")}
     pyr, feats, path_launches = drive_main_path(torch, dev, frames, counters)
 
     # 5. Headline: the kernel path vs the plain version on CPU tensors.
@@ -467,7 +896,8 @@ def main() -> int:
             frac, dfrac, n_cpu, n_gpu = compare_with_cpu(torch, out[0], cpu, size)
             check(frac >= MATCH_FRAC, f"frontend {name}: only {frac:.4f} of CPU keypoints matched")
             check(dfrac >= DESC_FRAC, f"frontend {name}: only {dfrac:.4f} of descriptors within L2")
-            timings[name] = frame_ms(torch, fe, frames[size]) + device_profile(torch, fe, frames[size][0])
+            timings[name] = (frame_ms(torch, fe, frames[size][:FRAMES])
+                             + device_profile(torch, fe, frames[size][0]))
         finally:
             descriptor.USE_FUSED_SAMPLING = False
         ms, mx, n, nk, dms = timings[name]
@@ -488,7 +918,7 @@ def main() -> int:
         check(len(want) > 0, f"exact branch {size}: no keypoints")
         recall = len(want & got) / len(want)
         check(recall >= RECALL_MIN, f"block-reduce recall {recall:.4f} at {size}")
-        ms, mx, n, nk, dms = frame_ms(torch, exact, frames[size]) + device_profile(
+        ms, mx, n, nk, dms = frame_ms(torch, exact, frames[size][:FRAMES]) + device_profile(
             torch, exact, frames[size][0])
         bms, _bmx, _bn, bnk, bdms = timings[size]
         phase("recall", f"{size}^2 K={k}: block-reduce found {recall:.4f} of the exact branch's "
@@ -496,32 +926,119 @@ def main() -> int:
               f"ms/frame, max {mx:.3f} (n={n}), device {dms:.3f} ms in {nk:.0f} ops/frame; "
               f"block-reduce {bms:.3f} ms/frame, device {bdms:.3f} ms in {bnk:.0f} ops/frame")
 
-    # 8. Each path of the main path went through its kernels.
+    # 7b. The batched frontend: every frame against the per-frame frontend
+    # on the card, and its time per frame beside the per-frame one's.
+    for size, S, k in FRONTEND_CONFIGS:
+        fe, out = feats[f"batched {size}"]
+        check(out.descriptors.shape == (BATCH, k, 128), f"batched {size}: shapes")
+        check_features(torch, [frame_of(out, i) for i in range(BATCH)], size, k)
+        per_frame = feats[size][1] + [fe(f) for f in frames[size][FRAMES:]]
+        fracs = [compare_frames(torch, frame_of(out, i), per_frame[i]) for i in range(BATCH)]
+        slot_frac, desc_frac = min(f[0] for f in fracs), min(f[1] for f in fracs)
+        check(slot_frac >= BATCH_SLOT_FRAC,
+              f"batched {size}: only {slot_frac:.4f} of a frame's slots equal the per-frame run")
+        check(desc_frac >= DESC_FRAC,
+              f"batched {size}: only {desc_frac:.4f} of a frame's descriptors within L2")
+        batch = torch.stack(frames[size])
+        bms, bmx, bn, bnk, bdms = frame_ms(torch, fe, [batch], passes=6) + device_profile(
+            torch, fe, batch, iters=3)
+        ms, mx, n, nk, dms = timings[size]
+        counts = [int(c) for c in out.keypoints.count()]
+        phase("batched", f"{size}^2 S={S} K={k} B={BATCH}: every frame vs the per-frame "
+              f"frontend on the card: slots equal {slot_frac:.4f} (min over frames, gate "
+              f"{BATCH_SLOT_FRAC}), descriptors within L2 {DESC_L2}: {desc_frac:.4f}; "
+              f"keypoints/frame {min(counts)}..{max(counts)}; batched median "
+              f"{bms / BATCH:.3f} ms/frame, max {bmx / BATCH:.3f} (n={bn} batches, host clock, "
+              f"synchronized), device {bdms / BATCH:.3f} ms and {bnk / BATCH:.1f} device "
+              f"ops/frame ({bnk:.0f} per batch); per-frame {ms:.3f} ms/frame, max {mx:.3f} "
+              f"(n={n}), device {dms:.3f} ms in {nk:.0f} ops/frame")
+        del batch
+
+    # 7c. A matched, verified pair and the two-view bootstrap.
+    pair_phase(torch, dev, feats["batched 512"][1])
+    twoview_phase(torch, dev)
+
+    # 8. Each path of the main path went through its kernels; the batched
+    # frontend launches each of its kernels ONCE for the whole batch.
     for path, kernels in PATH_KERNELS.items():
         for name in kernels:
             check(path_launches[path][name] > 0,
                   f"{name} was not launched by the main path's {path} run")
+        if str(path).startswith("batched"):
+            got = {n: c for n, c in path_launches[path].items() if c}
+            check(got == {"patch_gather_batched": 1, "score_tables": 1},
+                  f"the {path} run launched {got}, not one launch of each kernel per batch")
         label = f"frontend {path}^2" if isinstance(path, int) else path
         phase("launches", f"{label}: " + ", ".join(
             f"{name} {n}" for name, n in path_launches[path].items()))
     launches = {name: sum(c[name] for c in path_launches.values()) for name in counters}
 
+    # Bounds from this run's inputs: each input read once, each output written
+    # once, against the card's published peaks; for every shape timed above.
+    f4 = 4
+    k1_out = sum(o.numel() for o in pyr)
+    # Kernel 1: ~4 flops per output (two window products, a difference, the base).
+    k1_bound = bound_ms(f4 * (img512.numel() + k1_out), 4 * k1_out)
+
+    def gather_bound(n_patches, atlas_shape):
+        # Read: the patches' pixels, and no more than the atlases hold (patches
+        # overlap); the origins; written: every patch once.
+        patch = rows * cols * f4
+        read = min(n_patches * patch, int(np.prod(atlas_shape)) * f4)
+        return bound_ms(read + n_patches * (patch + 2 * 4), 0)
+
+    def tables_bound(size, b):      # the DoG read, the tables written, ~130 flops a voxel
+        flat, shapes = k3_flats[size]
+        lay = st.table_layout(tuple(shapes))
+        out = sum(o.n * 12 + (o.vg * 4 if o.dense else 0) for o in lay)
+        return bound_ms(b * (f4 * flat.shape[1] + out), b * 130 * sum(o.vg for o in lay))
+
+    def rows_bound(dog):            # the DoG read, one (f32, int32) entry per 64-column span
+        planes, h, w = dog.shape
+        entries = (planes - 2) * (h - 2) * -(-(w - 2) // 64)
+        return bound_ms(f4 * dog.numel() + 8 * entries, 130 * (planes - 2) * (h - 2) * (w - 2))
+
+    def resample_bound(k):          # the footprints read, both grids written, ~16 flops a sample
+        grids = 18 * 18 + 26 * 26
+        return bound_ms(k4_touched[k] + k * (grids + 4 + 2) * f4, 16 * k * grids)
+
+    bounds = {
+        "reference_dog_pyramid 512^2 S=2": k1_bound,
+        "patch_gather K=512": gather_bound(512, k2_ms[512][4]),
+        "patch_gather K=2048": gather_bound(2048, k2_ms[2048][4]),
+        f"patch_gather_batched B={BATCH} K=512": gather_bound(BATCH * 512, k2b_ms[512][5]),
+        f"patch_gather_batched B={BATCH} K=2048": gather_bound(BATCH * 2048, k2b_ms[1024][5]),
+        **{f"score_tables block_top2 {size}^2 B={b}": tables_bound(size, b)
+           for size in (512, 1024) for b in (1, BATCH)},
+        "score_tables rows (5,512,512)": rows_bound(stacks["random 512x512"][0][0]),
+        "score_tables rows (5,1024,1024)": rows_bound(stacks["random 1024x1024"][0][0]),
+        "gather_resample K=512": resample_bound(512),
+        "gather_resample K=2048": resample_bound(2048),
+    }
+    phase("bounds", f"least ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s and "
+          f"{PEAK_FP32_FLOPS / 1e12:.0f} fp32 TFLOP/s: " + "; ".join(
+              f"{name}: {ms:.4f} ({by})" for name, (ms, by) in bounds.items()))
+    k2_bound, k2b_bound = bounds["patch_gather K=512"], bounds[
+        f"patch_gather_batched B={BATCH} K=512"]
+    k3_bound = bounds["score_tables block_top2 512^2 B=1"]
+    k4_bound = bounds["gather_resample K=512"]
     m512, p512 = k2_ms[512][:2]
-    m3, p3 = k3_ms["block_top2 512^2 pyramid"][:2]
+    mb, pb, _mc, _pc, libb = k2b_ms[512][:5]
+    m3, p3 = k3_ms["block_top2 512^2 pyramid B=1"][:2]
     m4, p4 = k4_ms[512][:2]
+
+    def entry(name, source, replaces, err, ms, plain, bound, library):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library}
+
     print(json.dumps({"kernels": [
-        {"name": "reference_dog_pyramid", "route": "cuda", "source": SRC_K1,
-         "replaces": REPLACES_K1, "launches": launches["reference_dog_pyramid"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "patch_gather", "route": "cuda", "source": SRC_K2,
-         "replaces": REPLACES_K2, "launches": launches["patch_gather"], "max_abs_err": k2_err,
-         "ms": m512, "plain_ms": p512},
-        {"name": "score_tables", "route": "cuda", "source": SRC_K3,
-         "replaces": REPLACES_K3, "launches": launches["score_tables"], "max_abs_err": k3_err,
-         "ms": m3, "plain_ms": p3},
-        {"name": "gather_resample", "route": "cuda", "source": SRC_K4,
-         "replaces": REPLACES_K4, "launches": launches["gather_resample"],
-         "max_abs_err": k4_err, "ms": m4, "plain_ms": p4},
+        entry("reference_dog_pyramid", SRC_K1, REPLACES_K1, k1_err, k1_ms, k1_plain_ms,
+              k1_bound, None),
+        entry("patch_gather", SRC_K2, REPLACES_K2, k2_err, m512, p512, k2_bound, k2_lib[512]),
+        entry("patch_gather_batched", SRC_K2, REPLACES_K2B, k2b_err, mb, pb, k2b_bound, libb),
+        entry("score_tables", SRC_K3, REPLACES_K3, k3_err, m3, p3, k3_bound, None),
+        entry("gather_resample", SRC_K4, REPLACES_K4, k4_err, m4, p4, k4_bound, None),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

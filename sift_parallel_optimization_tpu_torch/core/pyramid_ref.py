@@ -141,17 +141,22 @@ def _blur_stack(size: int, sigmas, dtype, device) -> torch.Tensor:
 
 
 def blur_bank(x: torch.Tensor, bank_h: torch.Tensor, bank_w: torch.Tensor) -> torch.Tensor:
-    """(H, W) image -> (S', H, W): out_s = B^H_s^T @ x @ B^W_s."""
+    """(H, W) image -> (S', H, W): out_s = B^H_s^T @ x @ B^W_s. (B, H, W)
+    frames -> (B, S', H, W): the same products broadcast over the frames."""
+    if x.dim() == 3:
+        x = x[:, None]
     return bank_h.transpose(-1, -2) @ (x @ bank_w)
 
 
 def check_fp32_matmul(x: torch.Tensor) -> None:
     """Refuse TF32 matmuls on the card: ~1e-3 blur error makes spurious DoG
-    extrema (the failure the JAX package records for TPU bf16)."""
+    extrema (the failure the JAX package records for TPU bf16), and the
+    matcher's similarities and every geometry product need their fp32 digits
+    as much."""
     if x.is_cuda and torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError(
             "fp32 matmul precision must be 'highest' (TF32 disabled) for the "
-            "SIFT pyramid"
+            "SIFT pyramid, the matcher and the geometry"
         )
 
 
@@ -184,17 +189,18 @@ class SiftPyramid(nn.Module):
             self.register_buffer(f"bank_w{o}", _blur_stack(w, rel, dt, device))
 
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
-        """(H, W) image -> list of (S+3, H_o, W_o) Gaussian octaves."""
-        if tuple(img.shape) != self.shapes[0]:
-            raise ValueError(f"expected a {self.shapes[0]} image, got {tuple(img.shape)}")
+        """(H, W) image -> list of (S+3, H_o, W_o) Gaussian octaves; (B, H, W)
+        frames -> list of (B, S+3, H_o, W_o), every product batched over B."""
+        if img.dim() not in (2, 3) or tuple(img.shape[-2:]) != self.shapes[0]:
+            raise ValueError(f"expected {self.shapes[0]} images, got {tuple(img.shape)}")
         check_fp32_matmul(img)
-        x = blur_bank(img.to(self.cfg.dtype), self.base_h, self.base_w)[0]
+        x = blur_bank(img.to(self.cfg.dtype), self.base_h, self.base_w)[..., 0, :, :]
         octaves = []
         for o in range(len(self.shapes)):
             bh, bw = getattr(self, f"bank_h{o}"), getattr(self, f"bank_w{o}")
-            octave = torch.cat([x[None], blur_bank(x, bh, bw)], dim=0)
+            octave = torch.cat([x[..., None, :, :], blur_bank(x, bh, bw)], dim=-3)
             octaves.append(octave)
-            x = octave[self.cfg.S, ::2, ::2]
+            x = octave[..., self.cfg.S, ::2, ::2]
         return octaves
 
 

@@ -21,7 +21,8 @@
 //                            argmax) of the f32 ranking score, with the flat
 //                            index into the unpadded (S, H-2, W-2) volume.
 //   sift_score_block_top2    what the detection path uses: every octave of a
-//                            pyramid in one launch. For an octave of at least
+//                            pyramid, of every frame of a batch, in one
+//                            launch. For an octave of at least
 //                            4096 score voxels, the top-2 (ties to the lower
 //                            index) of each flat 64-voxel block of the
 //                            hop-packed int32 scores, laid out [firsts,
@@ -220,15 +221,26 @@ struct Octaves {
   long long g_base[kMaxOct];       // flat score index of the octave's voxel 0
   long long score_off[kMaxOct];    // dense octaves: first entry in `score`
   long long warp_start[kMaxOct + 1];
+  // A batch of frames with one octave layout, frame-major in every buffer.
+  int frames;
+  long long dog_stride;            // floats of one frame's flat DoG
+  long long out_stride;            // vals / idx entries of one frame
+  long long score_stride;          // dense-octave scores of one frame
 };
 
 __global__ void score_block_top2_kernel(const float* __restrict__ dog, Octaves oct, float thr,
                                         float edge_ratio, float er2, int refine,
                                         int* __restrict__ vals, long long* __restrict__ idx,
                                         float* __restrict__ score) {
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long gwarp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (warp >= oct.warp_start[oct.n]) return;   // whole warps exit together
+  const long long per_frame = oct.warp_start[oct.n];
+  if (gwarp >= per_frame * oct.frames) return;   // whole warps exit together
+  const long long frame = gwarp / per_frame;
+  const long long warp = gwarp - frame * per_frame;
+  vals += frame * oct.out_stride;
+  idx += frame * oct.out_stride;
+  score += frame * oct.score_stride;
   int o = 0;
   while (o + 1 < oct.n && warp >= oct.warp_start[o + 1]) ++o;
   const long long local = warp - oct.warp_start[o];
@@ -236,7 +248,7 @@ __global__ void score_block_top2_kernel(const float* __restrict__ dog, Octaves o
   const int hs = H - 2, ws = W - 2;
   const long long plane = static_cast<long long>(hs) * ws;
   const long long vg = static_cast<long long>(oct.planes - 2) * plane;
-  const float* src = dog + oct.dog_off[o];
+  const float* src = dog + frame * oct.dog_stride + oct.dog_off[o];
 
   if (oct.dense[o]) {
     const long long f = local * 32 + lane;
@@ -334,20 +346,28 @@ extern "C" int sift_score_tables_rows(const float* dog, int planes, int H, int W
   return static_cast<int>(cudaGetLastError());
 }
 
-// dog: the octaves' (planes, H_o, W_o) f32 stacks, concatenated flat. meta:
-// host array of n_oct rows (dog_off, H, W, dense, out_off, g_base,
-// score_off). Writes vals (int32 keys) and idx (int64 flat score indices)
-// from each octave's out_off and, for dense octaves, the f32 scores from its
-// score_off. Returns the cudaError_t of the launch (0 on success), or
-// cudaErrorInvalidValue for no or more than 32 octaves.
+// dog: n_frames frames, dog_stride floats apart, each the octaves' (planes,
+// H_o, W_o) f32 stacks concatenated flat. meta: host array of n_oct rows
+// (dog_off, H, W, dense, out_off, g_base, score_off), one frame's layout.
+// Per frame, out_stride entries apart, writes vals (int32 keys) and idx (int64
+// flat score indices WITHIN the frame) from each octave's out_off and, for
+// dense octaves, score_stride apart, the f32 scores from its score_off.
+// Returns the cudaError_t of the launch (0 on success), or
+// cudaErrorInvalidValue for no frame, or no or more than 32 octaves.
 extern "C" int sift_score_block_top2(const float* dog, const long long* meta, int n_oct,
-                                     int planes, float thr, float edge_ratio, float er2,
-                                     int refine, int* vals, long long* idx, float* score,
-                                     void* stream) {
-  if (n_oct < 1 || n_oct > kMaxOct) return static_cast<int>(cudaErrorInvalidValue);
+                                     int planes, int n_frames, long long dog_stride,
+                                     long long out_stride, long long score_stride, float thr,
+                                     float edge_ratio, float er2, int refine, int* vals,
+                                     long long* idx, float* score, void* stream) {
+  if (n_oct < 1 || n_oct > kMaxOct || n_frames < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   Octaves oct;
   oct.n = n_oct;
   oct.planes = planes;
+  oct.frames = n_frames;
+  oct.dog_stride = dog_stride;
+  oct.out_stride = out_stride;
+  oct.score_stride = score_stride;
   long long warps = 0;
   for (int o = 0; o < n_oct; ++o) {
     const long long* m = meta + 7 * o;
@@ -364,7 +384,7 @@ extern "C" int sift_score_block_top2(const float* dog, const long long* meta, in
   }
   oct.warp_start[n_oct] = warps;
   if (warps == 0) return static_cast<int>(cudaSuccess);
-  score_block_top2_kernel<<<blocks_for_warps(warps), kThreads, 0,
+  score_block_top2_kernel<<<blocks_for_warps(warps * n_frames), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(dog, oct, thr, edge_ratio, er2,
                                                                  refine, vals, idx, score);
   return static_cast<int>(cudaGetLastError());

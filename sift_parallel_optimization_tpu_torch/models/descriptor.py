@@ -11,6 +11,11 @@ With :data:`USE_FUSED_SAMPLING`, the fused kernel (``ops/gather_resample``)
 samples both grids straight from the atlas and the patch never reaches
 memory. Gradients, histograms and normalisation follow in plain PyTorch, in
 fp32.
+
+A batch of frames -- (B, S+3, H_o, W_o) octaves and keypoints with a leading
+(B,) axis -- takes the same code: one (B, R, C) atlas written in place, ONE
+launch of the batched gather for all B * K patches, and every per-keypoint
+step on the folded (B * K, ...) axis, so no op is repeated per frame.
 """
 
 from __future__ import annotations
@@ -21,7 +26,10 @@ import torch
 
 from sift_parallel_optimization_tpu_torch.models.keypoints import Keypoints
 from sift_parallel_optimization_tpu_torch.ops.gather_resample import gather_resample, resample
-from sift_parallel_optimization_tpu_torch.ops.patch_gather import extract_atlas_patches
+from sift_parallel_optimization_tpu_torch.ops.patch_gather import (
+    extract_atlas_patches,
+    extract_atlas_patches_batched,
+)
 
 N_ORI_BINS = 36
 ORI_SIGMA_FACTOR = 1.5     # orientation window sigma = 1.5 * keypoint sigma
@@ -62,33 +70,52 @@ def _roundup(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
+# (octave shapes, device) -> the atlas layout of one pyramid shape.
+_ATLAS_STATIC: dict[tuple, dict] = {}
+
+
+def _atlas_static(shapes: tuple, device) -> dict:
+    """Atlas layout for octaves of (scales, H_o, W_o) ``shapes`` on
+    ``device``, built once: the int32 index tables ``row_off``/``hprime``/
+    ``wlim`` (per octave) and the atlas size ``n_rows`` x ``n_cols``."""
+    key = (shapes, str(device))
+    if key in _ATLAS_STATIC:
+        return _ATLAS_STATIC[key]
+    wlim = [_roundup(w, 128) for _s, _h, w in shapes]
+    hprime = [2 * ROW_PAD + _roundup(h, ROW_ALIGN) for _s, h, _w in shapes]
+    row_off, r = [], 0
+    for (s, _h, _w), hp in zip(shapes, hprime):
+        row_off.append(r)
+        r += s * hp
+    lay = {
+        k: torch.tensor(v, dtype=torch.int32, device=device)
+        for k, v in (("row_off", row_off), ("hprime", hprime), ("wlim", wlim))
+    }
+    lay.update(n_rows=r, n_cols=max(COL_PAD + wl + 128 for wl in wlim),
+               rows=tuple(row_off), hp=tuple(hprime))
+    _ATLAS_STATIC[key] = lay
+    return lay
+
+
 def build_atlas(gauss_octaves: list[torch.Tensor]):
-    """Pack (S+3, H_o, W_o) octaves into one (R, C) atlas + index tables.
+    """Pack (S+3, H_o, W_o) octaves into one (R, C) atlas + index tables; a
+    leading (B,) axis on every octave gives one (B, R, C) atlas, written in
+    place.
 
     Scale s of octave o occupies rows [row_off[o] + s*hprime[o],
     row_off[o] + (s+1)*hprime[o]); the image starts ROW_PAD rows and
     COL_PAD columns into its band; everything else is zero.
     """
     device = gauss_octaves[0].device
-    heights = [g.shape[1] for g in gauss_octaves]
-    widths = [g.shape[2] for g in gauss_octaves]
-    wlim = [_roundup(w, 128) for w in widths]
-    hprime = [2 * ROW_PAD + _roundup(h, ROW_ALIGN) for h in heights]
-    C = max(COL_PAD + wl + 128 for wl in wlim)
-    n_rows = sum(g.shape[0] * hp for g, hp in zip(gauss_octaves, hprime))
-    atlas = torch.zeros((n_rows, C), dtype=ATLAS_DTYPE, device=device)
-    row_off, r = [], 0
-    for g, hp, h, w in zip(gauss_octaves, hprime, heights, widths):
-        s = g.shape[0]
-        band = atlas[r:r + s * hp].view(s, hp, C)
-        band[:, ROW_PAD:ROW_PAD + h, COL_PAD:COL_PAD + w] = g
-        row_off.append(r)
-        r += s * hp
-    meta = {
-        k: torch.tensor(v, dtype=torch.int32, device=device)
-        for k, v in (("row_off", row_off), ("hprime", hprime), ("wlim", wlim))
-    }
-    return atlas, meta
+    lead = tuple(gauss_octaves[0].shape[:-3])
+    lay = _atlas_static(tuple(tuple(g.shape[-3:]) for g in gauss_octaves), device)
+    n_cols = lay["n_cols"]
+    atlas = torch.zeros((*lead, lay["n_rows"], n_cols), dtype=ATLAS_DTYPE, device=device)
+    for g, r, hp in zip(gauss_octaves, lay["rows"], lay["hp"]):
+        s, h, w = g.shape[-3:]
+        band = atlas[..., r:r + s * hp, :].view(*lead, s, hp, n_cols)
+        band[..., ROW_PAD:ROW_PAD + h, COL_PAD:COL_PAD + w] = g
+    return atlas, {k: lay[k] for k in ("row_off", "hprime", "wlim")}
 
 
 def _patch_origins(meta: dict, n_oct: int, kp: Keypoints, max_radius: int, rows: int):
@@ -123,11 +150,14 @@ def _keypoint_patches(
     gauss_octaves: list[torch.Tensor], kp: Keypoints, max_radius: int = MAX_RADIUS
 ):
     """One aligned (patch_rows_for(max_radius), 256) patch per keypoint from
-    its own plane. Returns (patches, py, px, sig_o)."""
+    its own plane. Returns (patches, py, px, sig_o); with a leading (B,) axis
+    on octaves and keypoints, all B * K patches come from one batched gather
+    and every output keeps the (B, K) axes."""
     rows = patch_rows_for(max_radius)
     atlas, meta = build_atlas(gauss_octaves)
     grow, x0, py, px, sig_o = _patch_origins(meta, len(gauss_octaves), kp, max_radius, rows)
-    return extract_atlas_patches(atlas, grow, x0, rows, PATCH_COLS), py, px, sig_o
+    gather = extract_atlas_patches_batched if atlas.dim() == 3 else extract_atlas_patches
+    return gather(atlas, grow, x0, rows, PATCH_COLS), py, px, sig_o
 
 
 def _grid_gradients(samples: torch.Tensor):
@@ -170,14 +200,24 @@ def _sample_grids(
     gauss_octaves: list[torch.Tensor], kp: Keypoints, max_radius: int = MAX_RADIUS
 ):
     """One patch read per keypoint -> both sample grids. Returns
-    (samples_o (K,18,18), samples_d (K,26,26), off_o, off_d, sig_o)."""
+    (samples_o (K,18,18), samples_d (K,26,26), off_o, off_d, sig_o); a batch
+    comes back folded, K standing for B * K."""
     device = kp.x.device
     lin_o = torch.linspace(-1.0, 1.0, ORI_GRID, device=device)
     lin_d = torch.linspace(-1.0, 1.0, DESC_GRID, device=device)
-    if USE_FUSED_SAMPLING:
+    if USE_FUSED_SAMPLING and kp.x.dim() == 2:
+        # The fused kernel takes one atlas: frame by frame.
+        per_frame = [
+            _fused_sample_grids([g[i] for g in gauss_octaves], Keypoints(*[f[i] for f in kp]))
+            for i in range(kp.x.shape[0])
+        ]
+        samples_o, samples_d, rad_o, rad_d, sig_o = (torch.cat(t) for t in zip(*per_frame))
+    elif USE_FUSED_SAMPLING:
         samples_o, samples_d, rad_o, rad_d, sig_o = _fused_sample_grids(gauss_octaves, kp)
     else:
         patches, py, px, sig_o = _keypoint_patches(gauss_octaves, kp, max_radius=max_radius)
+        patches = patches.view(-1, *patches.shape[-2:])
+        py, px, sig_o = py.reshape(-1), px.reshape(-1), sig_o.reshape(-1)
         rad_o, rad_d = _radii(sig_o, max_radius=max_radius)
         samples_o = resample(patches, py, px, lin_o[None] * rad_o[:, None])
         samples_d = resample(patches, py, px, lin_d[None] * rad_d[:, None])
@@ -307,21 +347,26 @@ def orient_and_describe(
 
     With ``dual_orientation`` (Lowe's 80% rule) the capacity doubles: slots
     [K:2K) repeat each keypoint with the secondary peak's orientation,
-    valid only where a qualifying second peak exists.
+    valid only where a qualifying second peak exists. (B, S+3, H_o, W_o)
+    octaves with (B, K) keypoints give (B, K or 2K) keypoints and (B, K or
+    2K, 128) descriptors.
     """
+    lead = tuple(kp.x.shape[:-1])
     s_o, s_d, off_o, off_d, sig_o = _sample_grids(gauss_octaves, kp, max_radius=max_radius)
+    kp = Keypoints(*[f.reshape(-1) for f in kp])       # fold frames into keypoints
     theta1, theta2, second_ok = _orientation_from_samples(s_o, off_o, sig_o, kp)
     zero = torch.zeros_like(theta1)
     kp1 = kp._replace(orientation=torch.where(kp.valid, theta1, zero))
     desc1 = _normalize_desc(
         _descriptors_from_samples(s_d, off_d, sig_o, kp1.orientation, kp1), kp1.valid
     )
+    unfold = lambda t: t.reshape(*lead, -1, *t.shape[1:])
     if not dual_orientation:
-        return kp1, desc1
+        return Keypoints(*map(unfold, kp1)), unfold(desc1)
     valid2 = kp.valid & second_ok
     kp2 = kp._replace(orientation=torch.where(valid2, theta2, zero), valid=valid2)
     desc2 = _normalize_desc(
         _descriptors_from_samples(s_d, off_d, sig_o, kp2.orientation, kp2), valid2
     )
-    both = Keypoints(*[torch.cat([a, b], dim=0) for a, b in zip(kp1, kp2)])
-    return both, torch.cat([desc1, desc2], dim=0)
+    both = Keypoints(*[torch.cat([unfold(a), unfold(b)], dim=-1) for a, b in zip(kp1, kp2)])
+    return both, torch.cat([unfold(desc1), unfold(desc2)], dim=-2)

@@ -19,6 +19,13 @@ Two selection branches, as in the JAX package (``use_approx_topk``):
   tables picks the candidates, and the sparse re-fit starts at the hopped
   voxel. The JAX package's ``approx_max_k`` is exact on the CPU and exact
   selection is a valid ``approx_max_k``, so the port selects exactly.
+
+:func:`detect_pyramid_batched` is the one implementation: every tensor
+carries a leading frame axis, each kernel and each PyTorch op runs once for
+the whole batch (the block-reduce kernel takes every octave of every frame
+in one launch, sorts and top-k run along the last axis so ties break per
+frame), and :func:`detect_pyramid` is its B = 1 case. Nothing mixes values
+across frames, so a frame's keypoints do not depend on the batch it is in.
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ MAX_REFINE_OFFSET = 0.6
 
 
 def _window_extrema(dog: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(D, H, W) -> bool (D-2, H-2, W-2): strict 26-neighbour max / min
-    (separable shifted-slice max/min, centre included in the window)."""
+    """(..., D, H, W) -> bool (..., D-2, H-2, W-2): strict 26-neighbour max /
+    min (separable shifted-slice max/min, centre included in the window)."""
 
     def m3(x, axis, op):
         n = x.shape[axis]
@@ -44,16 +51,16 @@ def _window_extrema(dog: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                   x.narrow(axis, 2, n - 2))
 
     mx = mn = dog
-    for axis in range(3):
+    for axis in (-3, -2, -1):
         mx = m3(mx, axis, torch.maximum)
         mn = m3(mn, axis, torch.minimum)
-    c = dog[1:-1, 1:-1, 1:-1]
+    c = dog[..., 1:-1, 1:-1, 1:-1]
     return c >= mx, c <= mn
 
 
 def _grad_hess(dog: torch.Tensor):
-    """Central differences at interior voxels of (D, H, W): g = (gs, gy, gx)
-    and H = (hss, hyy, hxx, hsy, hsx, hyx), each (D-2, H-2, W-2)."""
+    """Central differences at interior voxels of (..., D, H, W): g = (gs, gy,
+    gx) and H = (hss, hyy, hxx, hsy, hsx, hyx), each (..., D-2, H-2, W-2)."""
     c = dog[..., 1:-1, 1:-1, 1:-1]
     ds_p, ds_m = dog[..., 2:, 1:-1, 1:-1], dog[..., :-2, 1:-1, 1:-1]
     dy_p, dy_m = dog[..., 1:-1, 2:, 1:-1], dog[..., 1:-1, :-2, 1:-1]
@@ -104,8 +111,8 @@ def dense_score(
     refine_iters: int,
     want_hops: bool = False,
 ):
-    """(S+2, H, W) DoG -> (S, H-2, W-2) ranking score (0 off-candidate) for
-    the contrast threshold ``thr`` (already divided by S).
+    """(..., S+2, H, W) DoG -> (..., S, H-2, W-2) ranking score (0
+    off-candidate) for the contrast threshold ``thr`` (already divided by S).
 
     ``want_hops`` (refine_iters >= 1 only) also returns the int32 key the
     block-reduce branch ranks by: the score's bit pattern (order-preserving
@@ -118,7 +125,7 @@ def dense_score(
     is_max, is_min = _window_extrema(dog)
     g, h = _grad_hess(dog)
     off_s, off_y, off_x, _ = _solve3(h, g)
-    c = dog[1:-1, 1:-1, 1:-1]
+    c = dog[..., 1:-1, 1:-1, 1:-1]
     gs, gy, gx = g
     _hss, hyy, hxx, _hsy, _hsx, hyx = h
     edge_ok = _edge_test(hyy, hxx, hyx, edge_ratio)
@@ -215,33 +222,36 @@ def _static(shapes: tuple, device) -> dict:
 
 
 def _select_from_tables(vals, idx, score, st: dict, k: int):
-    """The JAX package's extraction over the block tables: each octave's part
-    is its [firsts, seconds] tables or, for an octave under 4096 voxels, its
-    exact top-min(k, vg) by f32 score (ties to the lower index); the parts
-    concatenate in octave order, zero-pad to k and meet ONE stable top-k
-    (ties to the lower position). Returns (k,) int32 keys and int64 indices."""
+    """The JAX package's extraction over the block tables, per frame of the
+    leading (B,) axis: each octave's part is its [firsts, seconds] tables or,
+    for an octave under 4096 voxels, its exact top-min(k, vg) by f32 score
+    (ties to the lower index); the parts concatenate in octave order,
+    zero-pad to k and meet ONE stable top-k (ties to the lower position).
+    Returns (B, k) int32 keys and int64 indices."""
     lay = st["lay"]
+    b = vals.shape[0]
     if "dense_pos" in st:
         # Group by octave, score descending within it: two stable sorts.
-        order = torch.sort(score, descending=True, stable=True).indices
-        order = order[torch.sort(st["dense_grp"][order], stable=True).indices]
-        perm = st["dense_pos"][order]
+        order = torch.sort(score, dim=-1, descending=True, stable=True).indices
+        by_group = torch.sort(st["dense_grp"][order], dim=-1, stable=True).indices
+        perm = st["dense_pos"][torch.gather(order, -1, by_group)]
         full = torch.cat([
-            perm[o.score_off:o.score_off + min(k, o.vg)] if o.dense else st["tables"][j]
+            perm[:, o.score_off:o.score_off + min(k, o.vg)] if o.dense
+            else st["tables"][j].expand(b, -1)
             for j, o in enumerate(lay)
-        ])
-        vals, idx = vals[full], idx[full]
-    if len(lay) == 1 and vals.numel() == k:
+        ], dim=-1)
+        vals, idx = torch.gather(vals, -1, full), torch.gather(idx, -1, full)
+    if len(lay) == 1 and vals.shape[-1] == k:
         return vals, idx
-    if vals.numel() < k:
-        pad = k - vals.numel()
-        vals = torch.cat([vals, vals.new_zeros(pad)])
-        idx = torch.cat([idx, idx.new_zeros(pad)])
+    if vals.shape[-1] < k:
+        pad = k - vals.shape[-1]
+        vals = torch.cat([vals, vals.new_zeros((b, pad))], dim=-1)
+        idx = torch.cat([idx, idx.new_zeros((b, pad))], dim=-1)
     top, sel = stable_top_k(vals, k)
-    return top, idx[sel]
+    return top, torch.gather(idx, -1, sel)
 
 
-def detect_pyramid(
+def detect_pyramid_batched(
     dogs: list[torch.Tensor],
     cfg: PyramidConfig,
     max_keypoints: int = 512,
@@ -251,25 +261,31 @@ def detect_pyramid(
     use_approx_topk: bool | None = None,
     adaptive_hop: bool = False,
 ) -> Keypoints:
-    """(S+2, H_o, W_o) DoG octaves -> ``max_keypoints`` slots shared across
-    all octaves.
+    """One (B, S+2, H_o, W_o) DoG tensor per octave -> Keypoints with a
+    leading (B,) axis: ``max_keypoints`` slots per frame, shared across the
+    frame's octaves, equal slot for slot to :func:`detect_pyramid` of each
+    frame.
 
     ``use_approx_topk`` picks the selection branch (module docstring); None
     means the block-reduce branch on a CUDA tensor and the exact one on the
     CPU. ``adaptive_hop`` adds one more hop-and-refit round for candidates
     whose last fit still escapes the trust region; converged candidates keep
-    their values (computed for all, then selected: no host sync).
+    their values (computed for all, then selected: no host sync). The JAX
+    package's ``tail_batch_side`` padded-canvas grouping is not ported.
     """
     device = dogs[0].device
-    ds2 = dogs[0].shape[0]
+    b, ds2 = dogs[0].shape[:2]
+    if any(d.dim() != 4 or d.shape[0] != b for d in dogs):
+        raise ValueError("expected one (B, S+2, H_o, W_o) DoG tensor per octave")
     if use_approx_topk is None:
         use_approx_topk = device.type == "cuda"
     use_hops = use_approx_topk and refine_iters >= 1
-    shapes = tuple(tuple(d.shape) for d in dogs)
+    shapes = tuple(tuple(d.shape[1:]) for d in dogs)
     n_total = sum((p - 2) * (h - 2) * (w - 2) for p, h, w in shapes)
     k = min(max_keypoints, n_total)
     st = _static(shapes, device)
-    flat_dog = torch.cat([d.to(torch.float32).reshape(-1) for d in dogs])
+    # (B, L): each frame's octaves back to back, frame-major.
+    flat_dog = torch.cat([d.to(torch.float32).reshape(b, -1) for d in dogs], dim=1)
     thr = contrast_threshold / cfg.S
     if use_approx_topk:
         tv, ti, tscore = score_tables.score_block_top2(
@@ -278,11 +294,11 @@ def detect_pyramid(
         vals, idx = _select_from_tables(tv, ti, tscore, st, k)
     else:
         scores = [dense_score(d, thr, edge_ratio, refine_iters) for d in dogs]
-        vals, idx = stable_top_k(torch.cat([sc.reshape(-1) for sc in scores]), k)
+        vals, idx = stable_top_k(torch.cat([sc.reshape(b, -1) for sc in scores], dim=1), k)
     if k < max_keypoints:  # tiny pyramid: pad up to capacity
         pad = max_keypoints - k
-        vals = torch.cat([vals, vals.new_zeros(pad)])
-        idx = torch.cat([idx, idx.new_zeros(pad)])
+        vals = torch.cat([vals, vals.new_zeros((b, pad))], dim=-1)
+        idx = torch.cat([idx, idx.new_zeros((b, pad))], dim=-1)
     if use_approx_topk:
         # One decode of the winners: hop code from the low 5 bits, the f32
         # score from the rest (packed 0 -> 0.0, so invalid slots stay so).
@@ -292,7 +308,7 @@ def detect_pyramid(
         vals = vals.view(torch.float32)
 
     bases = st["base"]
-    j = (idx[:, None] >= bases[None, :]).sum(-1) - 1   # octave of each slot
+    j = (idx[..., None] >= bases).sum(-1) - 1            # octave of each slot
     hs_c, ws_c = st["hs"][j], st["ws"][j]
     gstart_c = st["gstart"][j]
     lim_y, lim_x = hs_c - 1, ws_c - 1                   # = H-3, W-3
@@ -305,11 +321,13 @@ def detect_pyramid(
     wp_c = ws_c + 2
     sp_c = (hs_c + 2) * wp_c
     fit = st["fit"]
-    deltas = fit[:, 0] * sp_c[:, None] + fit[:, 1] * wp_c[:, None] + fit[:, 2]
+    deltas = fit[:, 0] * sp_c[..., None] + fit[:, 1] * wp_c[..., None] + fit[:, 2]
 
     def fit_at(ps, py, px):
         corner = gstart_c + ps * sp_c + py * wp_c + px
-        return _cube_fit(flat_dog[corner[:, None] + deltas], edge_ratio)
+        pos = (corner[..., None] + deltas).reshape(b, -1)
+        return _cube_fit(torch.gather(flat_dog, 1, pos).view(b, -1, len(_FIT_OFFSETS)),
+                         edge_ratio)
 
     def hop(p, o, lim, conv):
         step = torch.round(o).clamp(-1, 1).to(torch.int64)
@@ -369,3 +387,12 @@ def detect_pyramid(
         scale=(s_i + 1).to(torch.int32),
         valid=valid,
     )
+
+
+def detect_pyramid(dogs: list[torch.Tensor], cfg: PyramidConfig, max_keypoints: int = 512,
+                   **thresholds) -> Keypoints:
+    """(S+2, H_o, W_o) DoG octaves of one frame -> ``max_keypoints`` slots
+    shared across all octaves: the B = 1 case of
+    :func:`detect_pyramid_batched`, which documents ``thresholds``."""
+    kp = detect_pyramid_batched([d[None] for d in dogs], cfg, max_keypoints, **thresholds)
+    return Keypoints(*[f[0] for f in kp])

@@ -1,15 +1,20 @@
 """The SIFT frontend: grayscale frame -> keypoints + descriptors (port of
 ``models/frontend.py``).
 
-SIFT Gaussian pyramid (``core/pyramid_ref.SiftPyramid``) -> DoG -> exact
+SIFT Gaussian pyramid (``core/pyramid_ref.SiftPyramid``) -> DoG ->
 detection (``models/detect``) -> orientation and 128-d descriptors
-(``models/descriptor``, through the patch-gather kernel on the card).
+(``models/descriptor``, through the patch-gather kernel on the card). A
+(B, H, W) batch of frames goes through the same three stages with the frames
+folded into every launch (``parallel/frontend`` is its functional entry
+point) and comes back with a leading (B,) axis on every field.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -20,13 +25,46 @@ from sift_parallel_optimization_tpu_torch.models.descriptor import (
     max_patch_radius,
     orient_and_describe,
 )
-from sift_parallel_optimization_tpu_torch.models.detect import detect_pyramid
-from sift_parallel_optimization_tpu_torch.models.keypoints import Keypoints
+from sift_parallel_optimization_tpu_torch.models.detect import (
+    detect_pyramid,
+    detect_pyramid_batched,
+)
+from sift_parallel_optimization_tpu_torch.models.keypoints import (
+    Keypoints,
+    keypoints_from_numpy,
+)
 
 
 class Features(NamedTuple):
     keypoints: Keypoints
     descriptors: torch.Tensor  # (K, 128) f32, zero in invalid slots
+
+
+def field(obj, name: str):
+    """``name`` of a mapping or of a (named) tuple: the two forms the
+    ``*_from_numpy`` converters take."""
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def features_from_numpy(arrays, device=None) -> Features:
+    """Features from numpy arrays, field for field: a mapping or named tuple
+    with ``keypoints`` (itself a mapping or named tuple of the Keypoints
+    fields) and ``descriptors``, e.g. the JAX frontend's output after
+    ``np.asarray``. Any leading batch axis is kept."""
+    kp = field(arrays, "keypoints")
+    return Features(
+        keypoints=keypoints_from_numpy({f: field(kp, f) for f in Keypoints._fields}, device),
+        descriptors=torch.as_tensor(
+            np.array(field(arrays, "descriptors")), dtype=torch.float32).to(device),
+    )
+
+
+def features_to_numpy(feats: Features) -> dict:
+    """The inverse of :func:`features_from_numpy`: nested dicts of numpy arrays."""
+    return {
+        "keypoints": {f: v.cpu().numpy() for f, v in feats.keypoints._asdict().items()},
+        "descriptors": feats.descriptors.cpu().numpy(),
+    }
 
 
 def sift_config(length: int, S: int = 3, **kw) -> PyramidConfig:
@@ -63,7 +101,8 @@ class SiftFrontend(nn.Module):
 
     @torch.no_grad()
     def forward(self, img: torch.Tensor) -> Features:
-        """(H, W) grayscale image in [0, 1] on ``self.device`` -> Features."""
+        """(H, W) grayscale image in [0, 1] on ``self.device`` -> Features;
+        (B, H, W) frames -> Features with a leading (B,) axis."""
         gauss = self.gaussian(img)
         return self.describe(gauss, self.detect(gauss))
 
@@ -78,9 +117,10 @@ class SiftFrontend(nn.Module):
     @torch.no_grad()
     def detect(self, gauss: list[torch.Tensor]) -> Keypoints:
         with record_function("sift.detect"):
-            dogs = [g[1:] - g[:-1] for g in gauss]
-            return detect_pyramid(dogs, self.cfg, max_keypoints=self.max_keypoints,
-                                  **self.thresholds)
+            dogs = [g[..., 1:, :, :] - g[..., :-1, :, :] for g in gauss]
+            detect = detect_pyramid_batched if dogs[0].dim() == 4 else detect_pyramid
+            return detect(dogs, self.cfg, max_keypoints=self.max_keypoints,
+                          **self.thresholds)
 
     @torch.no_grad()
     def describe(self, gauss: list[torch.Tensor], kp: Keypoints) -> Features:

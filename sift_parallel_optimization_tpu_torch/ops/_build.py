@@ -100,16 +100,16 @@ def load_kernels() -> ctypes.CDLL:
             return _lib
         build()
         lib = ctypes.CDLL(str(LIB_PATH))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.sift_reference_dog_pyramid.restype = i
         lib.sift_reference_dog_pyramid.argtypes = [p, p, p, i, i, i, p]
         lib.sift_patch_gather.restype = i
-        lib.sift_patch_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.sift_patch_gather.argtypes = [p, p, p, p, i, i, ll, i, ll, i, i, i, p]
         f = ctypes.c_float
         lib.sift_score_tables_rows.restype = i
         lib.sift_score_tables_rows.argtypes = [p, i, i, i, f, f, f, p, p, p]
         lib.sift_score_block_top2.restype = i
-        lib.sift_score_block_top2.argtypes = [p, p, i, i, f, f, f, i, p, p, p, p]
+        lib.sift_score_block_top2.argtypes = [p, p, i, i, i, ll, ll, ll, f, f, f, i, p, p, p, p]
         lib.sift_gather_resample.restype = i
         lib.sift_gather_resample.argtypes = [p, i, i, p, p, p, i, i, p, p, p]
         _lib = lib

@@ -9,9 +9,9 @@ voxel, two entry points:
 * :func:`score_tables_rows` -- the TPU kernel's contract: per score plane,
   interior row and 64-column span, (max, first argmax) of the ranking score.
 * :func:`score_block_top2` -- what the block-reduce detection branch runs:
-  every octave of a pyramid in one launch; per flat 64-voxel block the top-2
-  of the hop-packed int32 scores, or every voxel of an octave too small for
-  blocks (see :func:`table_layout`).
+  every octave of the pyramids of a (B,) batch of frames (one frame is
+  B = 1) in one launch; per flat 64-voxel block the top-2 of the hop-packed int32 scores,
+  or every voxel of an octave too small for blocks (see :func:`table_layout`).
 
 A CPU tensor takes the ``*_plain`` version; a CUDA tensor takes the kernel
 or raises. The plain versions run ``models/detect``'s own score code.
@@ -133,16 +133,18 @@ def score_tables_rows(
 # --- (b) block top-2 tables of every octave: the detection path -------------
 
 def _check_flat(flat_dog: torch.Tensor, shapes) -> list[OctaveTables]:
-    if flat_dog.dim() != 1 or not shapes:
-        raise ValueError("expected a flat DoG buffer and at least one octave shape")
+    if flat_dog.dim() != 2 or flat_dog.shape[0] < 1 or not shapes:
+        raise ValueError("expected a (B, L) flat DoG buffer, B >= 1, and at least one "
+                         f"octave shape, got {tuple(flat_dog.shape)}")
     planes = shapes[0][0]
     for shp in shapes:
         if len(shp) != 3 or shp[0] != planes or shp[0] < 3 or shp[1] < 3 or shp[2] < 3:
             raise ValueError(f"octave shapes must be (S+2, H, W) with one S, got {shapes}")
     lay = table_layout(tuple(tuple(s) for s in shapes))
     need = lay[-1].dog_off + planes * lay[-1].h * lay[-1].w
-    if flat_dog.numel() != need:
-        raise ValueError(f"flat DoG has {flat_dog.numel()} floats, the shapes need {need}")
+    if flat_dog.shape[1] != need:
+        raise ValueError(f"flat DoG has {flat_dog.shape[1]} floats a frame, the shapes "
+                         f"need {need}")
     return lay
 
 
@@ -163,20 +165,29 @@ def score_block_top2_plain(
     edge_ratio: float,
     refine_iters: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Every octave's candidate entries, laid out per :func:`table_layout`.
+    """Every octave's candidate entries of every frame, laid out per
+    :func:`table_layout`.
 
-    ``flat_dog`` holds the (S+2, H_o, W_o) octaves of ``shapes`` back to
-    back. Returns ``vals`` (T,) int32 keys -- the hop-packed score of
-    ``dense_score(want_hops=True)`` when ``refine_iters`` >= 1, else the
-    no-refine score's f32 bit pattern (both rank like the f32 score) --
-    ``idx`` (T,) int64 flat indices into the concatenated score volumes, and
-    ``score`` (D,) the f32 scores of the dense octaves' voxels.
+    Row b of the (B, L) ``flat_dog`` holds frame b's (S+2, H_o, W_o) octaves
+    of ``shapes`` back to back. Returns ``vals`` (B, T) int32 keys -- the
+    hop-packed score of ``dense_score(want_hops=True)`` when ``refine_iters``
+    >= 1, else the no-refine score's f32 bit pattern (both rank like the f32
+    score) -- ``idx`` (B, T) int64 flat indices into the frame's own
+    concatenated score volumes, and ``score`` (B, D) the f32 scores of the
+    dense octaves' voxels.
     """
     lay = _check_flat(flat_dog, shapes)
+    per_frame = [_frame_tables(f, lay, shapes[0][0], thr, edge_ratio, refine_iters)
+                 for f in flat_dog]
+    return tuple(torch.stack(t) for t in zip(*per_frame))
+
+
+def _frame_tables(flat_dog, lay, planes, thr, edge_ratio, refine_iters):
+    """One frame of :func:`score_block_top2_plain`: (L,) -> (T,), (T,), (D,)."""
     dev = flat_dog.device
     vals, idx, scores = [], [], []
     for o in lay:
-        dog = flat_dog[o.dog_off:o.dog_off + shapes[0][0] * o.h * o.w].view(-1, o.h, o.w)
+        dog = flat_dog[o.dog_off:o.dog_off + planes * o.h * o.w].view(-1, o.h, o.w)
         if refine_iters:
             score, key = detect.dense_score(dog, thr, edge_ratio, refine_iters, want_hops=True)
         else:
@@ -204,8 +215,8 @@ def score_block_top2_cuda(
     edge_ratio: float,
     refine_iters: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel, one launch for every octave: contiguous f32 flat DoG on
-    one card."""
+    """The kernel, one launch for every octave of every frame: contiguous f32
+    (B, L) flat DoG on one card."""
     global LAUNCHES
     lay = _check_flat(flat_dog, shapes)
     if not flat_dog.is_cuda or flat_dog.dtype != torch.float32 or not flat_dog.is_contiguous():
@@ -215,9 +226,10 @@ def score_block_top2_cuda(
     dev = flat_dog.device
     total = lay[-1].out_off + lay[-1].n
     n_dense = sum(o.vg for o in lay if o.dense)
-    vals = torch.empty(total, dtype=torch.int32, device=dev)
-    idx = torch.empty(total, dtype=torch.int64, device=dev)
-    score = torch.empty(n_dense, dtype=torch.float32, device=dev)
+    b, per_frame = flat_dog.shape
+    vals = torch.empty((b, total), dtype=torch.int32, device=dev)
+    idx = torch.empty((b, total), dtype=torch.int64, device=dev)
+    score = torch.empty((b, n_dense), dtype=torch.float32, device=dev)
     meta = (ctypes.c_longlong * (7 * len(lay)))(*[
         v for o in lay
         for v in (o.dog_off, o.h, o.w, int(o.dense), o.out_off, o.g_base, o.score_off)
@@ -226,7 +238,8 @@ def score_block_top2_cuda(
     lib = load_kernels()
     with torch.cuda.device(dev):
         rc = lib.sift_score_block_top2(
-            flat_dog.data_ptr(), ctypes.addressof(meta), len(lay), shapes[0][0], thr, er, er2,
+            flat_dog.data_ptr(), ctypes.addressof(meta), len(lay), shapes[0][0],
+            b, per_frame, total, n_dense, thr, er, er2,
             int(refine_iters > 0), vals.data_ptr(), idx.data_ptr(), score.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -11,7 +11,10 @@ milliseconds of a synchronized call with no profiler, and from one
 ``torch.profiler`` run per stage the number of device kernels and their
 summed device time. The device busy share is summed kernel time over
 synchronized wall time. ``--out`` writes the kernel table of the whole
-frame there. Needs a CUDA device.
+frame there. With ``--batch B`` the same table follows for the batched entry
+point on B frames, every number divided by B: per-stage wall, device time
+and device ops PER FRAME beside the per-frame frontend's. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -38,6 +41,23 @@ def _wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _profile_stages(stages: dict, iters: int, per: int = 1, out: str | None = None) -> None:
+    """Print wall, device ops and device time of each stage, divided by
+    ``per`` (the frames one call covers)."""
+    for name, fn in stages.items():
+        wall = statistics.median(_wall_ms(fn) for _ in range(iters)) / per
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n, dev_ms = device_activity(prof)
+        print(f"  {name:9s} wall {wall:8.3f} ms  device kernels {n / per:7.1f}  "
+              f"device {dev_ms / per:7.3f} ms  busy {100 * dev_ms / per / wall:5.1f}%")
+        if name == "frame" and out:
+            with open(out, "w") as fh:
+                fh.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                                   row_limit=60))
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--size", type=int, default=512)
@@ -47,6 +67,8 @@ def main(argv=None) -> int:
     p.add_argument("--exact", action="store_true", help="exact detection branch")
     p.add_argument("--fused", action="store_true", help="fused descriptor sampling")
     p.add_argument("--out", default=None, help="write the whole-frame kernel table here")
+    p.add_argument("--batch", type=int, default=0,
+                   help="also profile the batched entry point on this many frames")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frontend needs a CUDA device")
@@ -69,18 +91,22 @@ def main(argv=None) -> int:
     branch = ("exact" if args.exact else "block-reduce") + (" + fused" if args.fused else "")
     print(f"{torch.cuda.get_device_name(0)} frontend {args.size}^2 S={args.S} K={args.k} "
           f"({branch}), median of {args.iters}:")
-    for name, fn in stages.items():
-        wall = statistics.median(_wall_ms(fn) for _ in range(args.iters))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n, dev_ms = device_activity(prof)
-        print(f"  {name:9s} wall {wall:8.3f} ms  device kernels {n:5d}  device {dev_ms:7.3f} ms"
-              f"  busy {100 * dev_ms / wall:5.1f}%")
-        if name == "frame" and args.out:
-            with open(args.out, "w") as fh:
-                fh.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                                   row_limit=60))
+    _profile_stages(stages, args.iters, out=args.out)
+    if args.batch:
+        b = args.batch
+        imgs = torch.stack([torch.from_numpy(native.synth_frame(args.size, i, seed=0))
+                            for i in range(b)]).to(dev)
+        for _ in range(2):
+            fe(imgs)
+        gauss_b = fe.gaussian(imgs)
+        kp_b = fe.detect(gauss_b)
+        print(f"batched, B={b}, per frame (each number is the batch's divided by {b}):")
+        _profile_stages({
+            "pyramid": lambda: fe.gaussian(imgs),
+            "detect": lambda: fe.detect(gauss_b),
+            "describe": lambda: fe.describe(gauss_b, kp_b),
+            "frame": lambda: fe(imgs),
+        }, args.iters, per=b)
     return 0
 
 

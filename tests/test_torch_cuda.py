@@ -64,6 +64,49 @@ def test_patch_gather_kernel_is_bitwise_plain(dev, k):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_patch_gather_batched_kernel_is_bitwise_plain(dev, shared):
+    rng = np.random.default_rng(7)
+    b, k, r, c, rows, cols = 4, 300, 3000, 1280, 96, 256
+    shape = (r, c) if shared else (b, r, c)
+    atlas = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    ys = rng.integers(0, (r - rows) // 8 + 1, size=(b, k)).astype(np.int32) * 8
+    xs = rng.integers(0, (c - cols) // 128 + 1, size=(b, k)).astype(np.int32) * 128
+    ys[-1, -1], xs[-1, -1] = r - rows, c - cols   # last legal origin of the last frame
+    xs[1, 1] = 5                                  # unaligned column: the scalar path
+    ys[2, 2], xs[2, 2] = -3, -1                   # negative: from the frame's own end
+    ys[1, 3], xs[1, 3] = r + 500, c + 7           # over range: clamps into its own frame
+    ys_t, xs_t = torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev)
+    before = pg.LAUNCHES_BATCHED
+    got = pg.extract_atlas_patches_batched(atlas, ys_t, xs_t, rows, cols)
+    want = pg.extract_atlas_patches_batched_plain(atlas, ys_t, xs_t, rows, cols)
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES_BATCHED == before + 1
+    assert got.shape == (b, k, rows, cols) and torch.equal(got, want)
+    frame1 = atlas if shared else atlas[1]
+    assert torch.equal(got[1, 3], frame1[r - rows:, c - cols:])
+
+
+def test_batched_frontend_launches_each_kernel_once(dev, monkeypatch):
+    from sift_parallel_optimization_tpu_torch.parallel.frontend import batched_extract_features
+
+    for name in ("LAUNCHES", "LAUNCHES_BATCHED"):
+        monkeypatch.setattr(pg, name, 0)
+    monkeypatch.setattr(st, "LAUNCHES", 0)
+    imgs = torch.from_numpy(np.stack([native.synth_frame(256, i, seed=0) for i in range(4)]))
+    cfg = sift_config(256)
+    out = batched_extract_features(imgs, cfg, 64, device=dev)
+    torch.cuda.synchronize()
+    assert (pg.LAUNCHES, pg.LAUNCHES_BATCHED, st.LAUNCHES) == (0, 1, 1)
+    assert out.descriptors.shape == (4, 64, 128) and out.descriptors.is_cuda
+    fe = SiftFrontend(cfg, max_keypoints=64, device=dev)
+    for i in range(4):
+        ref = fe(imgs[i].to(dev))
+        assert torch.equal(out.keypoints.valid[i], ref.keypoints.valid)
+        assert torch.equal(out.keypoints.octave[i], ref.keypoints.octave)
+        torch.testing.assert_close(out.keypoints.x[i], ref.keypoints.x, rtol=0, atol=1e-3)
+
+
 def _dogs(dev, shape, seed):
     return torch.from_numpy(
         (0.05 * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)).to(dev)
@@ -84,11 +127,18 @@ def test_score_block_top2_kernel_is_bitwise_plain(dev, refine_iters):
     # voxel below; a ragged last block in each.
     shapes = [(5, 250 >> o, 370 >> o) for o in range(5)]
     flat = torch.cat([_dogs(dev, s, i).reshape(-1) for i, s in enumerate(shapes)])
-    got = st.score_block_top2_cuda(flat, shapes, 0.04 / 3, 10.0, refine_iters)
-    want = st.score_block_top2_plain(flat, shapes, 0.04 / 3, 10.0, refine_iters)
+    got = st.score_block_top2_cuda(flat[None], shapes, 0.04 / 3, 10.0, refine_iters)
+    want = st.score_block_top2_plain(flat[None], shapes, 0.04 / 3, 10.0, refine_iters)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert int((got[0] > 0).sum()) > 50
+    # Three frames in one launch: each frame's tables, indices within the frame.
+    batch = torch.stack([flat, flat.flip(0), flat])
+    got = st.score_block_top2_cuda(batch, shapes, 0.04 / 3, 10.0, refine_iters)
+    want = st.score_block_top2_plain(batch, shapes, 0.04 / 3, 10.0, refine_iters)
+    torch.cuda.synchronize()
+    assert got[0].shape[0] == 3 and all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(got[1][0], got[1][2])
 
 
 def test_gather_resample_kernel_matches_plain(dev):

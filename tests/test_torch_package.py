@@ -42,7 +42,9 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "sift_parallel_optimization_tpu_torch.models.frontend" in mods
+    for name in ("models.frontend", "models.geometry", "models.ba", "models.matching",
+                 "models.sfm", "parallel.frontend", "utils.device"):
+        assert f"sift_parallel_optimization_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -56,9 +58,53 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_port_sources_name_no_jax_module():
+    """No source of the port or of chip_smoke.py imports jax or the JAX
+    package, even inside a function that the import walk does not run."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|sift_parallel_optimization_tpu)\b[^_]",
+                     re.MULTILINE)
+    files = sorted(Path(port.__path__[0]).rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", ["batched_extract_features", "empty_map", "resolve_device"])
+def test_new_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, entry):
+    from sift_parallel_optimization_tpu_torch.models import sfm as tsfm
+    from sift_parallel_optimization_tpu_torch.parallel import frontend as tpf
+    from sift_parallel_optimization_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frames = np.zeros((2, 32, 32), np.float32)
+    cfg = tfe.sift_config(32)
+    calls = {
+        "batched_extract_features": lambda dev: tpf.batched_extract_features(
+            frames, cfg, 8, device=dev),
+        "empty_map": lambda dev: tsfm.empty_map(2, 4, device=dev),
+        "resolve_device": lambda dev: resolve_device(dev),
+    }
+    for dev in (None, "cuda", torch.device("cuda", 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            calls[entry](dev)
+    out = calls[entry]("cpu")                      # the caller asks for the CPU
+    first = out if isinstance(out, torch.device) else (
+        out.descriptors if entry == "batched_extract_features" else out.points)
+    assert torch.device(getattr(first, "device", first)).type == "cpu"
+    if entry == "batched_extract_features":
+        # A CPU tensor is followed; nothing moves on its own.
+        assert tpf.batched_extract_features(torch.from_numpy(frames), cfg, 8) \
+            .descriptors.device.type == "cpu"
+        with pytest.raises(ValueError, match=r"\(B, H, W\)"):
+            tpf.batched_extract_features(torch.from_numpy(frames[0]), cfg, 8)
+
+
 def test_cpu_tensors_take_plain_paths(monkeypatch):
     for mod in (tss, tpg, tst, tgr):
         monkeypatch.setattr(mod, "LAUNCHES", 0)
+    monkeypatch.setattr(tpg, "LAUNCHES_BATCHED", 0)
     img = torch.from_numpy(tnative.synth_frame(64, 0, seed=5))
     tpr.reference_dog_pyramid(img, 2)
     feats = tfe.extract_features(img, tfe.sift_config(64), 32)
@@ -68,7 +114,14 @@ def test_cpu_tensors_take_plain_paths(monkeypatch):
     feats = tfe.extract_features(img, tfe.sift_config(64), 32, use_approx_topk=True)
     assert feats.descriptors.shape == (32, 128)
     tst.score_tables_rows(torch.zeros(5, 8, 8), 0.01, 10.0)
+    from sift_parallel_optimization_tpu_torch.parallel.frontend import batched_extract_features
+
+    monkeypatch.setattr(tdesc, "USE_FUSED_SAMPLING", False)
+    feats = batched_extract_features(torch.stack([img, img]), tfe.sift_config(64), 32,
+                                     use_approx_topk=True)
+    assert feats.descriptors.shape == (2, 32, 128)
     assert tss.LAUNCHES == tpg.LAUNCHES == tst.LAUNCHES == tgr.LAUNCHES == 0
+    assert tpg.LAUNCHES_BATCHED == 0
 
 
 def test_wrappers_refuse_other_devices():
@@ -84,12 +137,12 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         tst.score_tables_rows(dog, 0.01, 10.0)
     with pytest.raises(ValueError, match="unsupported device"):
-        tst.score_block_top2(dog.reshape(-1), [(5, 8, 8)], 0.01, 10.0, 1)
+        tst.score_block_top2(dog.reshape(1, -1), [(5, 8, 8)], 0.01, 10.0, 1)
     params = torch.empty((2, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tgr.gather_resample(torch.empty((128, 256), device="meta"), idx, idx, params)
     with pytest.raises(ValueError, match="CUDA"):
-        tst.score_block_top2_cuda(torch.zeros(320), [(5, 8, 8)], 0.01, 10.0, 1)
+        tst.score_block_top2_cuda(torch.zeros(1, 320), [(5, 8, 8)], 0.01, 10.0, 1)
     with pytest.raises(ValueError, match="CUDA"):
         origin = torch.zeros(2, dtype=torch.int32)
         tgr.gather_resample_cuda(torch.zeros(128, 256), origin, origin, torch.zeros(2, 4))
@@ -216,3 +269,29 @@ def test_cuda_timer_refuses_cpu(monkeypatch):
         profiling.cuda_time_ms(lambda: None)
     with pytest.raises(RuntimeError, match="CUDA"):
         profiling.device_kernel_ms(lambda: None)
+
+
+def test_matcher_and_geometry_refuse_tf32_on_the_card(monkeypatch):
+    """The pin that the JAX package's ``_f32_precision`` decorators are: with
+    TF32 matmuls allowed, a CUDA tensor is refused (checked without a card
+    through a stand-in tensor that says it is one)."""
+    from sift_parallel_optimization_tpu_torch.models import geometry as tgeo
+    from sift_parallel_optimization_tpu_torch.models import matching as tmatch
+
+    class OnCard:
+        is_cuda = True
+
+    monkeypatch.setattr(torch, "get_float32_matmul_precision", lambda: "high")
+    with pytest.raises(RuntimeError, match="TF32"):
+        tpr.check_fp32_matmul(OnCard())
+    for fn, n_args in ((tmatch.match_descriptors, 4), (tmatch.ransac_homography, 4),
+                       (tmatch.ransac_fundamental, 4), (tgeo.triangulate, 4),
+                       (tgeo.pnp_dlt, 4)):
+        with pytest.raises(RuntimeError, match="TF32"):
+            fn(*[OnCard()] * n_args)
+    with pytest.raises(RuntimeError, match="TF32"):
+        tgeo.project(OnCard(), None, None, None)
+    # A CPU tensor is not held to it: its products are fp32 whatever the flag.
+    d = torch.nn.functional.normalize(torch.ones(4, 128), dim=1)
+    ok = torch.ones(4, dtype=torch.bool)
+    assert tmatch.match_descriptors(d, d, ok, ok).idx2.shape == (4,)

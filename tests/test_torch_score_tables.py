@@ -93,7 +93,9 @@ def test_score_block_top2_matches_jax_tables(dogs256, refine_iters):
     cfg = jfe.sift_config(256)
     shapes = tuple(d.shape for d in dogs256)
     flat = torch.from_numpy(np.concatenate([d.reshape(-1) for d in dogs256]))
-    vals, idx, score = tst.score_block_top2(flat, shapes, THR, jdet.EDGE_RATIO, refine_iters)
+    # One frame: the B = 1 case of the (B, L) contract.
+    vals, idx, score = (t[0] for t in tst.score_block_top2(
+        flat[None], shapes, THR, jdet.EDGE_RATIO, refine_iters))
     lay = tst.table_layout(shapes)
     assert [o.dense for o in lay] == [False, False, False, True, True, True]
     assert vals.dtype == torch.int32 and idx.dtype == torch.int64
@@ -101,11 +103,12 @@ def test_score_block_top2_matches_jax_tables(dogs256, refine_iters):
     n_pos = 0
     for o, d in zip(lay, dogs256):
         if refine_iters:
-            jscore, key = jdet._dense_score(jnp.asarray(d), cfg, jdet.CONTRAST_THRESHOLD,
-                                            jdet.EDGE_RATIO, 1, want_hops=True)
+            jscore, key = jax.jit(lambda x: jdet._dense_score(
+                x, cfg, jdet.CONTRAST_THRESHOLD, jdet.EDGE_RATIO, 1, want_hops=True))(
+                    jnp.asarray(d))
         else:
-            jscore = jdet._dense_score(jnp.asarray(d), cfg, jdet.CONTRAST_THRESHOLD,
-                                       jdet.EDGE_RATIO, 0)
+            jscore = jax.jit(lambda x: jdet._dense_score(
+                x, cfg, jdet.CONTRAST_THRESHOLD, jdet.EDGE_RATIO, 0))(jnp.asarray(d))
             key = jax.lax.bitcast_convert_type(jscore, jnp.int32)
         key = np.asarray(key).reshape(-1)
         got_v = vals[o.out_off:o.out_off + o.n].numpy()
@@ -118,7 +121,7 @@ def test_score_block_top2_matches_jax_tables(dogs256, refine_iters):
             continue
         nb = o.n // 2
         rows = jnp.asarray(np.pad(key, (0, nb * 64 - o.vg)).reshape(nb, 64))
-        tv1, ta1, tv2, ta2 = (np.asarray(t) for t in jdet._block_top2(rows))
+        tv1, ta1, tv2, ta2 = (np.asarray(t) for t in jax.jit(jdet._block_top2)(rows))
         want_v = np.concatenate([tv1, tv2])
         want_i = np.minimum(np.concatenate([ta1, ta2]) + 64 * np.tile(np.arange(nb), 2),
                             o.vg - 1)
