@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sift_parallel_optimization_tpu_torch/
-csrc``, checks each against its plain PyTorch version on the card, drives
+csrc``, checks each against its plain PyTorch version on the card (kernels
+1 and 3 bit for bit, kernel 1 up to 4096^2, kernel 3 also on odd, wide,
+constant, two-level and NaN DoGs), drives
 the entry points (the REFERENCE DoG pyramid at 512^2, S=2; the SIFT
 frontend at 512^2/K=512 and 1024^2/K=2048, S=3, on its default block-reduce
 detection branch; the frontend with fused descriptor sampling at
@@ -40,9 +42,13 @@ REPLACES_K2B = "sift_parallel_optimization_tpu/ops/patch_gather.py:96"
 REPLACES_K3 = "sift_parallel_optimization_tpu/ops/detect_fused.py:209"
 REPLACES_K4 = "sift_parallel_optimization_tpu/ops/descriptor_fused.py:138"
 
-# Kernel 1 vs its plain version: the tolerance of the JAX package's Pallas
-# equivalence test (tests/test_scale_space_pallas.py).
-K1_RTOL, K1_ATOL = 1e-5, 1e-6
+# Kernel 1 vs its plain version: bitwise (the kernel's _rn arithmetic is the
+# plain version's, op for op), at the headline size, the largest size of the
+# JAX package's pyramid workload, a size where the stores and not the launch
+# set the time, and sides that are no power of two (a ragged octave chain;
+# 500: only octave 0 keeps 16-byte rows; 768: down to side 12).
+K1_SIZES = (512, 1024, 4096, 1000, 500, 768)
+K1_TIMED = (512, 1024, 4096)
 # Headline vs the plain run on CPU tensors: exp of the window bank may
 # differ by an ulp between the CPU and CUDA math libraries.
 HEADLINE_ATOL = 1e-5
@@ -93,6 +99,12 @@ TV_MEDIAN_REPROJ_PX = 1.5
 # tensor cores (every kernel here computes in fp32 on the CUDA cores).
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 FRONTEND_CONFIGS = ((512, 3, 512), (1024, 3, 2048))
+# Device operations (kernels, copies, sets) one frame and one batch may
+# take, as the mean of a few profiled calls, rounded: the counts of the tree
+# before kernels 1 and 3 were redesigned (537 and 542 a frame, 557 and 565 a
+# batch of 8), which a kernel change must not raise (no second launch, no
+# per-call upload).
+FRAME_OPS_MAX, BATCH_OPS_MAX = 542, 565
 FUSED_CONFIG = (512, 3, 512)
 # The kernels each path of the main path must launch.
 PATH_KERNELS = {
@@ -138,17 +150,26 @@ def keyset(kp) -> set:
     return set(zip(*(f.cpu()[v].mul(1000).round().tolist() for f in (kp.x, kp.y, kp.sigma))))
 
 
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (torch.equal on the f32 tensors' int32 views, so
+    that nothing hides behind a NaN)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
 def max_err(got, want) -> float:
     return max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
                for g, w in zip(got, want))
 
 
 def kernel1_checks(torch, ss, dev):
-    """Kernel vs plain on the card at 512^2, 1024^2 and a ragged 1000^2."""
+    """Kernel vs plain on the card, bitwise, at every side of K1_SIZES (S=2,
+    all octaves). Returns (max abs error, {side: image} of the timed sides)."""
     import numpy as np
 
-    errs = []
-    for n in (512, 1024, 1000):
+    errs, imgs = [], {}
+    for n in K1_SIZES:
         img = torch.from_numpy(
             np.random.default_rng(n).random((n, n), dtype=np.float32)
         ).to(dev)
@@ -158,10 +179,13 @@ def kernel1_checks(torch, ss, dev):
         check(len(got) == len(want), f"kernel 1: octave count at {n}")
         for g, w in zip(got, want):
             check(g.shape == w.shape, f"kernel 1: shape {tuple(g.shape)} at {n}")
-            check(bool(torch.allclose(g, w, rtol=K1_RTOL, atol=K1_ATOL)),
-                  f"kernel 1 disagrees with plain at {n}: {max_err(got, want)}")
+            check(torch.equal(g, w),
+                  f"kernel 1 not bitwise equal to plain at {n}: {max_err(got, want)}")
         errs.append(max_err(got, want))
-    return max(errs)
+        if n in K1_TIMED:
+            imgs[n] = img
+        del got, want
+    return max(errs), imgs
 
 
 def frontend_atlas(torch, dev, size, S):
@@ -203,6 +227,47 @@ def flat_frames(torch, dogs):
             [tuple(d.shape[1:]) for d in dogs])
 
 
+# Kernel 3 cases its tiled design can get wrong, as name -> (octave shapes,
+# kind of DoG, frames): 64-voxel blocks that straddle score planes and rows
+# that are no multiple of 64 or of 4 wide, an octave whose offset in the flat
+# DoG is odd (no 16-byte rows), octaves under 4096 voxels beside them, rows
+# too wide for three of them in the slab (windows of columns), more score
+# planes than a tile is long, large constant regions (the non-strict extremum
+# test holds everywhere there), a two-level DoG (EVERY voxel is an extremum of
+# a cube that is not constant: the list takes whole tiles), NaNs (a voxel
+# with a NaN in its cube scores 0 in the plain version), and a frame count
+# that is no power of two.
+K3_ODD = ((5, 131, 77), (5, 66, 39), (5, 33, 20))
+K3_EXTRA = {
+    "odd octaves": (K3_ODD, "noise", 1),
+    "odd octaves, 3 frames": (K3_ODD, "noise", 3),
+    "odd octaves, constant regions": (K3_ODD, "flat", 1),
+    "odd octaves, two levels": (K3_ODD, "levels", 1),
+    "odd octaves, NaNs": (K3_ODD, "nan", 1),
+    "two levels 250x370": (((5, 250, 370),), "levels", 1),
+    "constant regions 250x370": (((5, 250, 370),), "flat", 3),
+    "wide rows 12x2600": (((5, 12, 2600),), "noise", 1),
+    "many planes 24x28": (((12, 24, 28),), "noise", 1),
+}
+
+
+def k3_extra_frame(shapes, kind, seed):
+    """One frame's DoG octaves of a K3_EXTRA case, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in shapes:
+        a = 0.05 * rng.normal(size=s)
+        if kind == "flat":
+            a[:, : s[1] // 2, :] = 0.0
+            a[:, :, : s[2] // 3] = 0.25
+        elif kind == "levels":
+            a = np.where(rng.random(size=s) < 0.5, -0.03, 0.04)
+        elif kind == "nan":
+            a[rng.random(size=s) < 0.01] = np.nan
+        out.append(a.astype(np.float32))
+    return out
+
+
 def kernel3_checks(torch, st, dev):
     """Both entry points vs their plain versions, bitwise: the rows tables on
     random DoG stacks and on the frontend's octaves; the block top-2 tables
@@ -215,6 +280,9 @@ def kernel3_checks(torch, st, dev):
     stacks = {f"random {s[1]}x{s[2]}": [torch.from_numpy(
         (0.05 * np.random.default_rng(s[1]).normal(size=s)).astype(np.float32)).to(dev)[None]]
         for s in ((5, 512, 512), (5, 1024, 1024), (5, 250, 370))}
+    for name, (shapes, kind, b) in K3_EXTRA.items():
+        stacks[name] = [torch.from_numpy(np.stack(d)).to(dev)
+                        for d in zip(*(k3_extra_frame(shapes, kind, i) for i in range(b)))]
     flats = {}
     for size in (512, 1024):
         dogs = frontend_dogs(torch, dev, size, 3, BATCH)
@@ -228,7 +296,7 @@ def kernel3_checks(torch, st, dev):
             got = st.score_block_top2_cuda(flat, shapes, THR, EDGE_RATIO, refine)
             want = st.score_block_top2_plain(flat, shapes, THR, EDGE_RATIO, refine)
             torch.cuda.synchronize()
-            check(all(g.shape[0] == flat.shape[0] and torch.equal(g, w)
+            check(all(g.shape[0] == flat.shape[0] and same_bits(torch, g, w)
                       for g, w in zip(got, want)),
                   f"kernel 3 block top-2 not bitwise equal to plain on {name}, refine {refine}")
             err = max(err, max_err(got, want))
@@ -239,11 +307,11 @@ def kernel3_checks(torch, st, dev):
             got = st.score_tables_rows_cuda(dog[0].contiguous(), THR, EDGE_RATIO)
             want = st.score_tables_rows_plain(dog[0], THR, EDGE_RATIO)
             torch.cuda.synchronize()
-            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+            check(all(same_bits(torch, g, w) for g, w in zip(got, want)),
                   f"kernel 3 rows not bitwise equal to plain on {name} {tuple(dog.shape[1:])}")
             err = max(err, max_err(got, want))
             cases += 1
-        hold(*flat_frames(torch, dogs), f"{name}, one frame")
+        hold(*flat_frames(torch, dogs), f"{name}, {dogs[0].shape[0]} frame(s) in one launch")
     for size, (flat, shapes) in flats.items():
         check(flat.shape[0] == BATCH, f"kernel 3: {size}^2 batch shape")
         hold(flat, shapes, f"the {BATCH} frames of the {size}^2 stream in one launch")
@@ -265,18 +333,9 @@ def kernel4_inputs(torch, rng, k, atlas, dev):
 
 def device_profile(torch, fn, *args, iters=10):
     """(device activities, device ms) per call from one profiler run."""
-    from torch.profiler import ProfilerActivity, profile
+    from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
 
-    from sift_parallel_optimization_tpu_torch.utils.profiling import device_activity
-
-    fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn(*args)
-        torch.cuda.synchronize()
-    n, ms = device_activity(prof)
-    return n / iters, ms / iters
+    return profile_device(fn, *args, warmup=1, iters=iters)[:2]
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -726,18 +785,26 @@ def main() -> int:
           f"-> {os.path.relpath(_build.LIB_PATH, HERE)}")
 
     # 3. Kernel 1 vs its plain version on the card.
-    k1_err = kernel1_checks(torch, ss, dev)
+    k1_err, k1_imgs = kernel1_checks(torch, ss, dev)
     img512 = torch.from_numpy(native.synth_frame(512, 0, seed=0)).to(dev)
+    k1_imgs[512] = img512
     # Device time of the launched kernels (profiler), and per-call time
-    # between CUDA events, which includes the host's enqueue time.
-    k1_ms = device_kernel_ms(ss.reference_dog_pyramid_cuda, img512, 2, iters=50)
-    k1_plain_ms = device_kernel_ms(ss.reference_dog_pyramid_plain, img512, 2, iters=50)
+    # between CUDA events, which includes the host's enqueue time. The floor
+    # of any launch: the cheapest device operation the port has, timed the
+    # same way.
+    k1_times = {n: (device_kernel_ms(ss.reference_dog_pyramid_cuda, img, 2, iters=30),
+                    device_kernel_ms(ss.reference_dog_pyramid_plain, img, 2, iters=10))
+                for n, img in sorted(k1_imgs.items())}
+    k1_ms, k1_plain_ms = k1_times[512]
     k1_call = cuda_time_ms(ss.reference_dog_pyramid_cuda, img512, 2, iters=50)
     k1_plain_call = cuda_time_ms(ss.reference_dog_pyramid_plain, img512, 2, iters=50)
-    phase("kernel1", f"reference_dog_pyramid at 512/1024/1000^2 S=2: max_abs_err={k1_err:.3e} "
-          f"(rtol {K1_RTOL}, atol {K1_ATOL}); 512^2 device: kernel {k1_ms:.4f} ms, "
-          f"plain {k1_plain_ms:.4f} ms; per call: kernel {k1_call:.4f} ms, "
-          f"plain {k1_plain_call:.4f} ms")
+    launch_floor_ms = device_kernel_ms(torch.zeros(1, device=dev).zero_, iters=50)
+    del k1_imgs[4096]
+    phase("kernel1", f"reference_dog_pyramid S=2, all octaves, bitwise equal to plain at "
+          f"{'/'.join(map(str, K1_SIZES))}^2: max_abs_err={k1_err:.3e}; device: " + "; ".join(
+              f"{n}^2 kernel {m:.4f} ms, plain {p:.4f} ms" for n, (m, p) in k1_times.items())
+          + f"; a one-element zero_() {launch_floor_ms:.4f} ms; 512^2 per call: kernel "
+          f"{k1_call:.4f} ms, plain {k1_plain_call:.4f} ms")
 
     # 4. Kernel 2 vs its plain version on the card, on the frontend's atlases.
     rng = np.random.default_rng(0)
@@ -824,7 +891,8 @@ def main() -> int:
     phase("kernel3", f"score_tables rows + block_top2 bitwise equal to plain in {k3_cases} "
           f"cases, max_abs_err={k3_err:.3e} "
           f"(random 512^2, 1024^2, 250x370 stacks and frontend 512^2, 1024^2 octaves, one "
-          f"frame a launch; the {BATCH} frames of both frontend streams in one launch); " +
+          f"frame a launch; the {BATCH} frames of both frontend streams in one launch; "
+          f"{', '.join(K3_EXTRA)}); " +
           "; ".join(f"{n}: device kernel {m:.4f} ms, plain {p:.4f} ms; per call kernel "
                     f"{mc:.4f} ms, plain {pc:.4f} ms" for n, (m, p, mc, pc) in k3_ms.items()))
 
@@ -889,7 +957,8 @@ def main() -> int:
     for name, (size, S, k) in [(c[0], c) for c in FRONTEND_CONFIGS] + [("fused", FUSED_CONFIG)]:
         fe, out = feats[name]
         check_features(torch, out, size, k)
-        cpu_fe = SiftFrontend(sift_config(size, S=S), max_keypoints=k, use_approx_topk=True)
+        cpu_fe = SiftFrontend(sift_config(size, S=S), max_keypoints=k, device="cpu",
+                              use_approx_topk=True)
         descriptor.USE_FUSED_SAMPLING = name == "fused"
         try:
             cpu = cpu_fe(frames[size][0].cpu())
@@ -901,6 +970,8 @@ def main() -> int:
         finally:
             descriptor.USE_FUSED_SAMPLING = False
         ms, mx, n, nk, dms = timings[name]
+        check(round(nk) <= FRAME_OPS_MAX, f"frontend {name}: {nk:.0f} device ops a frame, more than "
+              f"{FRAME_OPS_MAX}")
         counts = [int(o.keypoints.count()) for o in out]
         phase("frontend", f"{name if name == 'fused' else 'block-reduce'} {size}^2 S={S} K={k}: "
               f"median {ms:.3f} ms/frame, max {mx:.3f} (n={n}, host clock, synchronized), "
@@ -943,6 +1014,8 @@ def main() -> int:
         bms, bmx, bn, bnk, bdms = frame_ms(torch, fe, [batch], passes=6) + device_profile(
             torch, fe, batch, iters=3)
         ms, mx, n, nk, dms = timings[size]
+        check(round(bnk) <= BATCH_OPS_MAX, f"batched {size}: {bnk:.0f} device ops a batch, more than "
+              f"{BATCH_OPS_MAX}")
         counts = [int(c) for c in out.keypoints.count()]
         phase("batched", f"{size}^2 S={S} K={k} B={BATCH}: every frame vs the per-frame "
               f"frontend on the card: slots equal {slot_frac:.4f} (min over frames, gate "
@@ -976,9 +1049,16 @@ def main() -> int:
     # Bounds from this run's inputs: each input read once, each output written
     # once, against the card's published peaks; for every shape timed above.
     f4 = 4
-    k1_out = sum(o.numel() for o in pyr)
-    # Kernel 1: ~4 flops per output (two window products, a difference, the base).
-    k1_bound = bound_ms(f4 * (img512.numel() + k1_out), 4 * k1_out)
+
+    def pyramid_floats(n):          # S + 3 = 5 planes per octave, every octave
+        return sum(5 * (n >> o) ** 2 for o in range(n.bit_length()))
+
+    def pyramid_bound(n):           # the image read, the planes written, ~4 flops per output
+        out = pyramid_floats(n)     # (two window products, a difference, the base)
+        return bound_ms(f4 * (n * n + out), 4 * out)
+
+    check(sum(o.numel() for o in pyr) == pyramid_floats(512), "bounds: pyramid size at 512")
+    k1_bound = pyramid_bound(512)
 
     def gather_bound(n_patches, atlas_shape):
         # Read: the patches' pixels, and no more than the atlases hold (patches
@@ -1003,7 +1083,7 @@ def main() -> int:
         return bound_ms(k4_touched[k] + k * (grids + 4 + 2) * f4, 16 * k * grids)
 
     bounds = {
-        "reference_dog_pyramid 512^2 S=2": k1_bound,
+        **{f"reference_dog_pyramid {n}^2 S=2": pyramid_bound(n) for n in K1_TIMED},
         "patch_gather K=512": gather_bound(512, k2_ms[512][4]),
         "patch_gather K=2048": gather_bound(2048, k2_ms[2048][4]),
         f"patch_gather_batched B={BATCH} K=512": gather_bound(BATCH * 512, k2b_ms[512][5]),
@@ -1017,7 +1097,8 @@ def main() -> int:
     }
     phase("bounds", f"least ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s and "
           f"{PEAK_FP32_FLOPS / 1e12:.0f} fp32 TFLOP/s: " + "; ".join(
-              f"{name}: {ms:.4f} ({by})" for name, (ms, by) in bounds.items()))
+              f"{name}: {ms:.4f} ({by})" for name, (ms, by) in bounds.items())
+          + f"; floor of any launch (a one-element zero_()): {launch_floor_ms:.4f} ms")
     k2_bound, k2b_bound = bounds["patch_gather K=512"], bounds[
         f"patch_gather_batched B={BATCH} K=512"]
     k3_bound = bounds["score_tables block_top2 512^2 B=1"]

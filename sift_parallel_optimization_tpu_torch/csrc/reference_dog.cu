@@ -9,81 +9,175 @@
 //   out_o[s]         = base_o * (f_s(y) f_s(x) - f_{s+1}(y) f_{s+1}(x)),  s < n_scales - 1
 //   out_o[n_scales-1] = base_o * f_top(y) f_top(x)
 //
-// What bounds it on the H100: output bandwidth. It reads about n^2 floats
-// (strided) and writes n_scales * (4/3) n^2 floats with ~3 flops per output,
-// far below the card's flop-per-byte balance.
+// What bounds it on the H100: output bandwidth. It reads about (4/3) n^2
+// floats (strided above octave 0, left to the cache) and writes n_scales *
+// (4/3) n^2 floats with ~4 flops per output, far below the card's
+// flop-per-byte balance. At 512^2 the whole pyramid is 7 MB and a launch's
+// fixed few microseconds are most of its time; from 4096^2 on the stores are.
 //
-// Design: one thread per pixel of the whole pyramid (all octaves flattened
-// into one index space), so the octave loop, the strided subsample and the
-// tiny tail octaves cost no extra launches. A thread reads its source pixel
-// once and writes all n_scales planes; consecutive threads write consecutive
-// x, so every plane's stores are coalesced. The output is one flat buffer
-// with per-octave offsets (the wrapper returns views). Products and
-// differences use the _rn intrinsics so nvcc cannot contract them into FMAs:
-// the result then equals the plain PyTorch version, op for op.
+// Design: CTAs map to rows, threads to four consecutive x. A CTA of 256
+// threads is folded per octave into (256 >> lg) rows of (1 << lg) threads,
+// lg chosen on the host so that one thread row spans the octave's row (at
+// most 1024 pixels a segment); octave, row block, segment and the octave's
+// offsets come once per CTA from blockIdx and a table in the parameter
+// struct: no per-thread octave walk and no division by the side. A thread
+// reads its four source pixels once (one 16-byte load at octave 0), the
+// n_scales column factors as float4 and the row factors as broadcast
+// scalars, and writes n_scales 16-byte streaming stores (__stcs: the output
+// is never read again by the kernel); consecutive threads write consecutive
+// 16 bytes. On large images a CTA walks several row blocks, so the card
+// holds fewer, longer CTAs.
+//
+// Alignment: an octave takes the 16-byte path when its side is a multiple of
+// 4 and its offsets in the flat output and in the banks are too. Both
+// offsets sum n_scales * side^2 and n_scales * side of the octaves before
+// it, so for a power-of-two n every octave down to side 4 is aligned, and
+// for any n every octave down to the first side that is no multiple of 4
+// (500: only octave 0; 768: down to side 12). The rest (sides 2 and 1, odd
+// sides) are small and take the same mapping with scalar loads and stores,
+// each x guarded. No shared memory. Products and differences use the _rn
+// intrinsics so nvcc cannot contract them into FMAs: the result equals the
+// plain PyTorch version, op for op.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxOct = 32;
+constexpr int kMaxRowBlocks = 4;    // row blocks one CTA walks, at most
+constexpr int kCtasPerSm = 16;      // CTAs per SM wanted before a CTA walks more rows
+constexpr int kSms = 132;
 
-__global__ void reference_dog_pyramid_kernel(
-    const float* __restrict__ img, const float* __restrict__ banks,
-    float* __restrict__ out, int n, int n_oct, int n_scales,
-    long long total_pix) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= total_pix) return;
+struct Pyramid {
+  int n_oct, n_scales, n;
+  int walk;                      // row blocks per CTA
+  int size[kMaxOct];             // side of the octave
+  int lg[kMaxOct];               // log2 of the threads that span a row segment
+  int vec[kMaxOct];              // 1: 16-byte loads and stores
+  int segs[kMaxOct];             // row segments of (4 << lg) pixels
+  int cta_start[kMaxOct + 1];    // first CTA of the octave
+  int bank_off[kMaxOct];         // first float of the octave's window bank
+  long long out_off[kMaxOct];    // first float of the octave in the flat output
+};
 
-  // Locate the octave: pixel, output and bank offsets accumulate octave by
-  // octave (at most ~14 steps, identical for neighbouring threads).
+__global__ void __launch_bounds__(kThreads)
+reference_dog_pyramid_kernel(const float* __restrict__ img, const float* __restrict__ banks,
+                             float* __restrict__ out, Pyramid pyr) {
+  int cta = blockIdx.x;
   int o = 0;
-  int size = n;
-  long long pix_off = 0, out_off = 0, bank_off = 0;
-  while (o + 1 < n_oct && p >= pix_off + static_cast<long long>(size) * size) {
-    const long long plane = static_cast<long long>(size) * size;
-    pix_off += plane;
-    out_off += plane * n_scales;
-    bank_off += static_cast<long long>(size) * n_scales;
-    size >>= 1;
-    ++o;
-  }
-  const long long q = p - pix_off;
-  const int y = static_cast<int>(q / size);
-  const int x = static_cast<int>(q - static_cast<long long>(y) * size);
+  while (o + 1 < pyr.n_oct && cta >= pyr.cta_start[o + 1]) ++o;
+  cta -= pyr.cta_start[o];
+  const int size = pyr.size[o], lg = pyr.lg[o], segs = pyr.segs[o];
+  const int row_block = cta / segs;
+  const int seg = cta - row_block * segs;
+  const int rows = kThreads >> lg;                       // rows of one row block
+  const int tx = threadIdx.x & ((1 << lg) - 1), ty = threadIdx.x >> lg;
+  const int x = ((seg << lg) + tx) << 2;
+  if (x >= size) return;
+  const float* f = banks + pyr.bank_off[o];
+  const size_t plane = static_cast<size_t>(size) * size;
+  float* dst_o = out + pyr.out_off[o];
+  const int n_scales = pyr.n_scales;
 
-  const float base = __ldg(img + (static_cast<long long>(y) << o) * n +
-                           (static_cast<long long>(x) << o));
-  const float* f = banks + bank_off;
-  const long long plane = static_cast<long long>(size) * size;
-  float* dst = out + out_off + q;
-
-  float w_prev = __fmul_rn(__ldg(f + y), __ldg(f + x));
-  for (int s = 1; s < n_scales; ++s) {
-    const float* fs = f + static_cast<long long>(s) * size;
-    const float w = __fmul_rn(__ldg(fs + y), __ldg(fs + x));
-    dst[(s - 1) * plane] = __fmul_rn(base, __fsub_rn(w_prev, w));
-    w_prev = w;
+  for (int w = 0; w < pyr.walk; ++w) {
+    const int y = (row_block * pyr.walk + w) * rows + ty;
+    if (y >= size) return;
+    const float* src = img + static_cast<size_t>(y << o) * pyr.n + (static_cast<size_t>(x) << o);
+    float* dst = dst_o + static_cast<size_t>(y) * size + x;
+    if (pyr.vec[o]) {
+      float4 base;
+      if (o == 0) {
+        base = __ldg(reinterpret_cast<const float4*>(src));
+      } else {
+        const size_t step = static_cast<size_t>(1) << o;
+        base = make_float4(__ldg(src), __ldg(src + step), __ldg(src + 2 * step),
+                           __ldg(src + 3 * step));
+      }
+      float fy = __ldg(f + y);
+      float4 fx = __ldg(reinterpret_cast<const float4*>(f + x));
+      float4 prev = make_float4(__fmul_rn(fy, fx.x), __fmul_rn(fy, fx.y), __fmul_rn(fy, fx.z),
+                                __fmul_rn(fy, fx.w));
+      for (int s = 1; s < n_scales; ++s) {
+        const float* fs = f + s * size;
+        fy = __ldg(fs + y);
+        fx = __ldg(reinterpret_cast<const float4*>(fs + x));
+        const float4 cur = make_float4(__fmul_rn(fy, fx.x), __fmul_rn(fy, fx.y),
+                                       __fmul_rn(fy, fx.z), __fmul_rn(fy, fx.w));
+        __stcs(reinterpret_cast<float4*>(dst + (s - 1) * plane),
+               make_float4(__fmul_rn(base.x, __fsub_rn(prev.x, cur.x)),
+                           __fmul_rn(base.y, __fsub_rn(prev.y, cur.y)),
+                           __fmul_rn(base.z, __fsub_rn(prev.z, cur.z)),
+                           __fmul_rn(base.w, __fsub_rn(prev.w, cur.w))));
+        prev = cur;
+      }
+      __stcs(reinterpret_cast<float4*>(dst + (n_scales - 1) * plane),
+             make_float4(__fmul_rn(base.x, prev.x), __fmul_rn(base.y, prev.y),
+                         __fmul_rn(base.z, prev.z), __fmul_rn(base.w, prev.w)));
+    } else {
+      const int nx = min(4, size - x);
+      for (int j = 0; j < nx; ++j) {
+        const float base = __ldg(src + (static_cast<size_t>(j) << o));
+        float prev = __fmul_rn(__ldg(f + y), __ldg(f + x + j));
+        for (int s = 1; s < n_scales; ++s) {
+          const float* fs = f + s * size;
+          const float cur = __fmul_rn(__ldg(fs + y), __ldg(fs + x + j));
+          __stcs(dst + (s - 1) * plane + j, __fmul_rn(base, __fsub_rn(prev, cur)));
+          prev = cur;
+        }
+        __stcs(dst + (n_scales - 1) * plane + j, __fmul_rn(base, prev));
+      }
+    }
   }
-  dst[(n_scales - 1) * plane] = __fmul_rn(base, w_prev);
 }
 
 }  // namespace
 
 // img: (n, n) f32; banks: concatenated (n_scales, n >> o) window banks of the
 // n_oct octaves; out: concatenated (n_scales, n >> o, n >> o) planes.
-// Returns the cudaError_t of the launch (0 on success).
+// Returns the cudaError_t of the launch (0 on success), or
+// cudaErrorInvalidValue for more than 32 octaves or a side of 2^15 or more.
 extern "C" int sift_reference_dog_pyramid(const float* img, const float* banks,
                                           float* out, int n, int n_oct,
                                           int n_scales, void* stream) {
-  long long total = 0;
+  if (n_oct > kMaxOct || n >= (1 << 15) || n_scales < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(img) | reinterpret_cast<uintptr_t>(banks) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  Pyramid pyr;
+  pyr.n_oct = n_oct;
+  pyr.n_scales = n_scales;
+  pyr.n = n;
+  long long quads = 0;
+  for (int o = 0, size = n; o < n_oct; ++o, size >>= 1)
+    quads += static_cast<long long>(size) * ((size + 3) / 4);
+  if (quads == 0) return static_cast<int>(cudaSuccess);
+  // Small pyramids: one row block a CTA, so that the card fills at all.
+  long long walk = quads / (static_cast<long long>(kThreads) * kSms * kCtasPerSm);
+  pyr.walk = static_cast<int>(walk < 1 ? 1 : (walk > kMaxRowBlocks ? kMaxRowBlocks : walk));
+  long long ctas = 0, out_off = 0;
+  int bank_off = 0;
   for (int o = 0, size = n; o < n_oct; ++o, size >>= 1) {
-    total += static_cast<long long>(size) * size;
+    const int quads_row = (size + 3) / 4;
+    int lg = 0;
+    while ((1 << lg) < quads_row && (1 << lg) < kThreads) ++lg;
+    const int rows = (kThreads >> lg) * pyr.walk;
+    pyr.size[o] = size;
+    pyr.lg[o] = lg;
+    pyr.segs[o] = (quads_row + (1 << lg) - 1) >> lg;
+    pyr.vec[o] = aligned && size % 4 == 0 && out_off % 4 == 0 && bank_off % 4 == 0;
+    pyr.cta_start[o] = static_cast<int>(ctas);
+    pyr.bank_off[o] = bank_off;
+    pyr.out_off[o] = out_off;
+    ctas += static_cast<long long>((size + rows - 1) / rows) * pyr.segs[o];
+    out_off += static_cast<long long>(n_scales) * size * size;
+    bank_off += n_scales * size;
   }
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  reference_dog_pyramid_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      img, banks, out, n, n_oct, n_scales, total);
+  pyr.cta_start[n_oct] = static_cast<int>(ctas);
+  if (ctas == 0) return static_cast<int>(cudaSuccess);
+  reference_dog_pyramid_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(img, banks, out, pyr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,7 @@ from sift_parallel_optimization_tpu_torch.models.keypoints import (
     Keypoints,
     keypoints_from_numpy,
 )
+from sift_parallel_optimization_tpu_torch.utils.device import resolve_device
 
 
 class Features(NamedTuple):
@@ -50,7 +51,9 @@ def features_from_numpy(arrays, device=None) -> Features:
     """Features from numpy arrays, field for field: a mapping or named tuple
     with ``keypoints`` (itself a mapping or named tuple of the Keypoints
     fields) and ``descriptors``, e.g. the JAX frontend's output after
-    ``np.asarray``. Any leading batch axis is kept."""
+    ``np.asarray``. Any leading batch axis is kept. ``device`` None means the
+    card, and raises without one."""
+    device = resolve_device(device)
     kp = field(arrays, "keypoints")
     return Features(
         keypoints=keypoints_from_numpy({f: field(kp, f) for f in Keypoints._fields}, device),
@@ -72,7 +75,8 @@ def sift_config(length: int, S: int = 3, **kw) -> PyramidConfig:
 
 
 class SiftFrontend(nn.Module):
-    """Frontend for (height, width) frames on one device.
+    """Frontend for (height, width) frames on one device (None means the
+    card, and raises without one).
 
     Holds the configuration, the pyramid's blur matrices (buffers of the
     ``pyramid`` submodule), the device and the keypoint capacity.
@@ -93,7 +97,7 @@ class SiftFrontend(nn.Module):
         super().__init__()
         height = cfg.length if height is None else height
         self.cfg = cfg
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.max_keypoints = max_keypoints
         self.dual_orientation = dual_orientation
         self.thresholds = thresholds

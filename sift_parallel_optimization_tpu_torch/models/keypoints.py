@@ -11,6 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sift_parallel_optimization_tpu_torch.utils.device import resolve_device
+
 
 class Keypoints(NamedTuple):
     """A fixed-capacity batch of keypoints; every field has shape (K,).
@@ -45,6 +47,9 @@ _DTYPES = {
 
 
 def empty_keypoints(capacity: int, device=None) -> Keypoints:
+    """All-invalid keypoints on ``device``; None means the card, and raises
+    without one."""
+    device = resolve_device(device)
     z = torch.zeros(capacity, dtype=torch.float32, device=device)
     zi = torch.zeros(capacity, dtype=torch.int32, device=device)
     return Keypoints(
@@ -74,7 +79,9 @@ def top_k_keypoints(kp: Keypoints, k: int) -> Keypoints:
 
 def keypoints_from_numpy(arrays: dict, device=None) -> Keypoints:
     """Keypoints from a dict of per-field numpy arrays (e.g. the JAX
-    detector's output converted with ``np.asarray``)."""
+    detector's output converted with ``np.asarray``). ``device`` None means
+    the card, and raises without one."""
+    device = resolve_device(device)
     return Keypoints(**{
         f: torch.as_tensor(
             np.array(arrays[f]), dtype=_DTYPES.get(f, torch.float32)

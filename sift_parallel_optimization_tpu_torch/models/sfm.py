@@ -78,7 +78,9 @@ _MAP_DTYPES = {"cam_valid": torch.bool, "pt_valid": torch.bool}
 def sfm_map_from_numpy(arrays, device=None) -> SfmMap:
     """SfmMap from numpy arrays, field for field: a mapping or named tuple of
     the SfmMap fields whose ``obs`` is a mapping or named tuple of the
-    Observations fields (e.g. the JAX package's map after ``np.asarray``)."""
+    Observations fields (e.g. the JAX package's map after ``np.asarray``).
+    ``device`` None means the card, and raises without one."""
+    device = resolve_device(device)
     as_t = lambda a, dt: torch.as_tensor(np.array(a), dtype=dt).to(device)
     obs = field(arrays, "obs")
     return SfmMap(

@@ -2,7 +2,8 @@
 
 Kernel: ``csrc/reference_dog.cu`` (replaces the JAX package's
 ``ops/scale_space_pallas.reference_dog_octave_pallas``). One launch computes
-every octave of the pyramid into one flat buffer; the wrapper returns
+every octave of the pyramid into one flat buffer (CTAs map to rows, a thread
+to four consecutive pixels with 16-byte stores); the wrapper returns
 per-octave views. A CPU tensor takes :func:`reference_dog_pyramid_plain`; a
 CUDA tensor takes the kernel or raises.
 """
@@ -59,6 +60,8 @@ def reference_dog_pyramid_cuda(
     if not img.is_contiguous():
         raise ValueError("image must be contiguous")
     n = img.shape[0]
+    if n >= 2 ** 15:
+        raise ValueError(f"side {n}: the kernel takes sides below 32768")
     n_oct = clamp_octaves(n, n_octaves)
     n_scales = S + 3
     sizes = [n >> o for o in range(n_oct)]

@@ -14,7 +14,11 @@ voxel, two entry points:
   or every voxel of an octave too small for blocks (see :func:`table_layout`).
 
 A CPU tensor takes the ``*_plain`` version; a CUDA tensor takes the kernel
-or raises. The plain versions run ``models/detect``'s own score code.
+or raises. The plain versions run ``models/detect``'s own score code. The
+kernel tests extrema first and scores only those (a CTA per tile of the
+octave, its DoG rows staged in shared memory); it equals the plain versions
+bit for bit on any input, NaN included (a voxel with a NaN in its 3x3x3 cube
+scores 0 in both). Both kernels index an octave's score voxels in 32 bits.
 """
 
 from __future__ import annotations
@@ -104,6 +108,8 @@ def score_tables_rows_cuda(
     if not dog.is_cuda or dog.dtype != torch.float32 or not dog.is_contiguous():
         raise ValueError("score_tables_rows_cuda needs a contiguous float32 CUDA tensor")
     planes, h, w = dog.shape
+    if (planes - 2) * (h - 2) * (w - 2) >= 2 ** 31:
+        raise ValueError("the octave has 2^31 score voxels or more")
     shape = (planes - 2, h - 2, -(-(w - 2) // SPAN))
     tv = torch.empty(shape, dtype=torch.float32, device=dog.device)
     ti = torch.empty(shape, dtype=torch.int32, device=dog.device)
@@ -221,8 +227,11 @@ def score_block_top2_cuda(
     lay = _check_flat(flat_dog, shapes)
     if not flat_dog.is_cuda or flat_dog.dtype != torch.float32 or not flat_dog.is_contiguous():
         raise ValueError("score_block_top2_cuda needs a contiguous float32 CUDA tensor")
-    if len(lay) > 32:
-        raise ValueError(f"at most 32 octaves, got {len(lay)}")
+    if len(lay) > 32 or flat_dog.shape[0] > 65535:
+        raise ValueError(f"at most 32 octaves and 65535 frames, got {len(lay)} and "
+                         f"{flat_dog.shape[0]}")
+    if max(o.vg for o in lay) >= 2 ** 31 - 4096:
+        raise ValueError("an octave has 2^31 score voxels or more")
     dev = flat_dog.device
     total = lay[-1].out_off + lay[-1].n
     n_dense = sum(o.vg for o in lay if o.dense)

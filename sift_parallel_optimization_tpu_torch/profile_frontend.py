@@ -25,12 +25,11 @@ import sys
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from sift_parallel_optimization_tpu_torch.models import descriptor
 from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
 from sift_parallel_optimization_tpu_torch.utils import native
-from sift_parallel_optimization_tpu_torch.utils.profiling import device_activity
+from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
 
 
 def _wall_ms(fn) -> float:
@@ -46,10 +45,7 @@ def _profile_stages(stages: dict, iters: int, per: int = 1, out: str | None = No
     ``per`` (the frames one call covers)."""
     for name, fn in stages.items():
         wall = statistics.median(_wall_ms(fn) for _ in range(iters)) / per
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n, dev_ms = device_activity(prof)
+        n, dev_ms, prof = profile_device(fn, warmup=0, iters=1)
         print(f"  {name:9s} wall {wall:8.3f} ms  device kernels {n / per:7.1f}  "
               f"device {dev_ms / per:7.3f} ms  busy {100 * dev_ms / per / wall:5.1f}%")
         if name == "frame" and out:

@@ -1,4 +1,10 @@
-"""Which device an entry point of the port runs on."""
+"""Which device an entry point of the port runs on.
+
+One rule for the whole package: an entry point, a constructor or a
+``*_from_numpy`` converter that takes ``device=None`` means the card and
+raises without one; a function that is handed tensors follows them. The CPU
+is only ever asked for: pass CPU tensors or ``device="cpu"``.
+"""
 
 from __future__ import annotations
 

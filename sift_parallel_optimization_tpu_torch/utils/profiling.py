@@ -37,29 +37,61 @@ def cuda_time_ms(fn: Callable[..., Any], *args, warmup: int = 3, iters: int = 20
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def device_activity(prof) -> tuple[int, float]:
-    """(count, summed device ms) of the device activity (kernels, copies,
-    sets) in a finished ``torch.profiler.profile``; ``record_function``
-    ranges' own device rows are left out."""
-    from torch.autograd import DeviceType
+# A torch.profiler run can lose its FIRST device records while tracing
+# starts up (seen on torch 2.11: now and then the first 20-70 launches of a
+# run, about its first millisecond; the host-side launch records are all
+# kept), and device and host records need not share a clock to the
+# microsecond. So a run opens with launches nobody needs and a pause, the
+# timed calls run last, inside a marked host range after a synchronize, and
+# the device records that count are the last ones of the run, as many as
+# the host launched inside the range. A run that kept too few is made again.
+_SACRIFICED = 64
+_SETTLE_S = 0.005
+_ATTEMPTS = 3
+_MARK = "sift.timed_calls"
+_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset")
 
-    evs = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    return len(evs), sum(e.device_time_total for e in evs) / 1e3
+
+def profile_device(fn: Callable[..., Any], *args, warmup: int = 3, iters: int = 20):
+    """(device ops per call, device ms per call, the finished profile) of
+    ``fn(*args)``: the device activity (kernels, copies, sets) of ``iters``
+    calls in one ``torch.profiler`` run, host enqueue time excluded. Raises
+    if the profiler keeps losing records of the timed calls."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    _require_cuda("profile_device")
+    spare = torch.zeros(1, device="cuda")
+    for attempt in range(_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(_SACRIFICED):
+                spare.zero_()
+            torch.cuda.synchronize()
+            time.sleep(_SETTLE_S)
+            for _ in range(warmup):
+                fn(*args)
+            torch.cuda.synchronize()
+            with record_function(_MARK):
+                for _ in range(iters):
+                    fn(*args)
+                torch.cuda.synchronize()
+        events = prof.events()
+        mark = next(e for e in events if e.name == _MARK and e.device_type == DeviceType.CPU)
+        t0, t1 = mark.time_range.start, mark.time_range.end
+        launched = sum(1 for e in events if e.device_type == DeviceType.CPU
+                       and e.name.startswith(_LAUNCHES) and t0 <= e.time_range.start <= t1)
+        device = sorted((e for e in events
+                         if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                        key=lambda e: e.time_range.start)
+        if len(device) > launched:
+            timed = device[len(device) - launched:]
+            return launched / iters, sum(e.device_time_total for e in timed) / 1e3 / iters, prof
+    raise RuntimeError(f"the profiler kept {len(device)} device records of a run whose "
+                       f"{iters} timed calls alone launched {launched}, {_ATTEMPTS} times over")
 
 
 def device_kernel_ms(fn: Callable[..., Any], *args, warmup: int = 3, iters: int = 20) -> float:
-    """Device milliseconds per call of ``fn(*args)``: the summed time of the
-    device activity it launches, from one ``torch.profiler`` run of
-    ``iters`` calls, host enqueue time excluded."""
-    from torch.profiler import ProfilerActivity, profile
-
-    _require_cuda("device_kernel_ms")
-    for _ in range(warmup):
-        fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn(*args)
-        torch.cuda.synchronize()
-    return device_activity(prof)[1] / iters
+    """Device milliseconds per call of ``fn(*args)`` (see :func:`profile_device`)."""
+    return profile_device(fn, *args, warmup=warmup, iters=iters)[1]

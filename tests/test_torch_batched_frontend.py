@@ -209,7 +209,7 @@ def test_batched_extract_features_matches_jax(frames, jax_features, b):
 def test_batched_extract_features_matches_per_frame_frontend(frames, kw):
     cfg = tfe.sift_config(SIZE)
     imgs = torch.from_numpy(frames)
-    fe = tfe.SiftFrontend(cfg, max_keypoints=64, **kw)
+    fe = tfe.SiftFrontend(cfg, max_keypoints=64, device="cpu", **kw)
     out = tpf.batched_extract_features(imgs, cfg, 64, **kw)
     via_module = fe(imgs)
     for a, b in zip((*out.keypoints, out.descriptors),

@@ -22,8 +22,7 @@ from sift_parallel_optimization_tpu_torch.utils import native
 
 pytestmark = pytest.mark.cuda
 
-# The JAX package's Pallas-vs-jnp tolerance; the kernel avoids FMA
-# contraction, so on the card it is in fact bitwise equal to the plain version.
+# Kernel 4 against its plain version (batched matmuls that may sum with FMAs).
 RTOL, ATOL = 1e-5, 1e-6
 
 
@@ -34,17 +33,23 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("size,S", [(512, 2), (1000, 2), (64, 3)])
+@pytest.mark.parametrize("size,S", [(512, 2), (1000, 2), (64, 3), (500, 2), (768, 3), (37, 1),
+                                    (2048, 2)])
 def test_reference_dog_kernel_matches_plain(dev, size, S):
+    """Bitwise (the kernel's _rn arithmetic is the plain version's): sides
+    whose octaves all keep 16-byte rows, ragged chains that leave them (1000,
+    500, 768, 37) and a side at which a CTA walks several row blocks."""
     img = torch.from_numpy(
         np.random.default_rng(size).random((size, size), dtype=np.float32)
     ).to(dev)
+    before = ss.LAUNCHES
     got = ss.reference_dog_pyramid_cuda(img, S)
     want = ss.reference_dog_pyramid_plain(img, S)
     torch.cuda.synchronize()
+    assert ss.LAUNCHES == before + 1
     assert [g.shape for g in got] == [w.shape for w in want]
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("k", [512, 2048])
@@ -141,6 +146,69 @@ def test_score_block_top2_kernel_is_bitwise_plain(dev, refine_iters):
     assert torch.equal(got[1][0], got[1][2])
 
 
+# Inputs the tiled score-table kernel can get wrong (chip_smoke.py holds the
+# same kinds at full size): odd octaves at odd offsets of the flat DoG, rows
+# wider than the slab takes three of, more score planes than a tile is long;
+# constant regions, a two-level DoG (every voxel an extremum) and NaNs.
+K3_SHAPES = {
+    "odd octaves": ((5, 131, 77), (5, 66, 39), (5, 33, 20)),
+    "wide rows": ((5, 12, 2600),),
+    "many planes": ((12, 24, 28),),
+    "one row a rectangle": ((5, 40, 2048),),
+}
+
+
+def _k3_frames(shapes, kind, frames):
+    out = []
+    for seed in range(frames):
+        rng = np.random.default_rng(seed)
+        parts = []
+        for s in shapes:
+            a = 0.05 * rng.normal(size=s)
+            if kind == "constant regions":
+                a[:, : s[1] // 2, :] = 0.0
+                a[:, :, : s[2] // 3] = 0.25
+            elif kind == "two levels":
+                a = np.where(rng.random(size=s) < 0.5, -0.03, 0.04)
+            elif kind == "nan":
+                a[rng.random(size=s) < 0.01] = np.nan
+            parts.append(a.astype(np.float32).reshape(-1))
+        out.append(np.concatenate(parts))
+    return torch.from_numpy(np.stack(out))
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("refine_iters", [0, 1])
+@pytest.mark.parametrize("kind", ["noise", "constant regions", "two levels", "nan"])
+@pytest.mark.parametrize("name,frames", [("odd octaves", 1), ("odd octaves", 3), ("wide rows", 1),
+                                         ("many planes", 2), ("one row a rectangle", 1)])
+def test_score_tables_kernel_contract_cases_are_bitwise_plain(dev, name, frames, kind,
+                                                              refine_iters):
+    shapes = K3_SHAPES[name]
+    flat = _k3_frames(shapes, kind, frames).to(dev)
+    before = st.LAUNCHES
+    got = st.score_block_top2_cuda(flat, shapes, 0.04 / 3, 10.0, refine_iters)
+    want = st.score_block_top2_plain(flat, shapes, 0.04 / 3, 10.0, refine_iters)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES == before + 1
+    assert got[0].shape[0] == frames and all(_same_bits(g, w) for g, w in zip(got, want))
+    assert int((got[0] > 0).sum()) > 50
+    if refine_iters:
+        off = 0
+        for s in shapes:                       # the rows tables, octave by octave
+            dog = flat[0, off:off + s[0] * s[1] * s[2]].view(s).contiguous()
+            off += dog.numel()
+            got = st.score_tables_rows_cuda(dog, 0.04 / 3, 10.0)
+            want = st.score_tables_rows_plain(dog, 0.04 / 3, 10.0)
+            torch.cuda.synchronize()
+            assert all(_same_bits(g, w) for g, w in zip(got, want))
+
+
 def test_gather_resample_kernel_matches_plain(dev):
     rng = np.random.default_rng(4)
     k, r, c = 512, 3000, 1280
@@ -157,6 +225,18 @@ def test_gather_resample_kernel_matches_plain(dev):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+def test_profile_device_counts_every_timed_launch(dev):
+    """One kernel a call: the device-time helper sees exactly ``iters``
+    device records inside its timed range (a profiler run can lose its
+    first records; the helper opens with spare launches and checks)."""
+    from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
+
+    dog = _dogs(dev, (5, 64, 64), 3)
+    for _ in range(3):
+        ops, ms, _prof = profile_device(st.score_tables_rows_cuda, dog, 0.04 / 3, 10.0, iters=7)
+        assert ops == 1 and 0 < ms < 1
 
 
 def test_wrappers_check_inputs(dev):

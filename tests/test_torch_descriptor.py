@@ -79,7 +79,7 @@ def jax_stage():
 
     gauss, kp = jax.jit(run)(img)
     gauss_t = [torch.from_numpy(np.array(g)) for g in gauss]
-    kp_t = keypoints_from_numpy({f: np.asarray(v) for f, v in kp._asdict().items()})
+    kp_t = keypoints_from_numpy({f: np.asarray(v) for f, v in kp._asdict().items()}, "cpu")
     return cfg, gauss, kp, gauss_t, kp_t
 
 

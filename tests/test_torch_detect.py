@@ -118,14 +118,14 @@ def test_top_k_keypoints_breaks_ties_like_lax_top_k():
     fields.update(score=score, valid=valid, x=np.arange(8, dtype=np.float32),
                   octave=np.zeros(8, np.int32), scale=np.ones(8, np.int32))
     want = jkp.top_k_keypoints(jkp.Keypoints(**{k: jnp.asarray(v) for k, v in fields.items()}), 5)
-    got = tkp.top_k_keypoints(tkp.keypoints_from_numpy(fields), 5)
+    got = tkp.top_k_keypoints(tkp.keypoints_from_numpy(fields, "cpu"), 5)
     np.testing.assert_array_equal(got.x.numpy(), np.asarray(want.x))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
 
 
 def test_empty_and_concat_keypoints_match_jax():
     want = jkp.concat_keypoints([jkp.empty_keypoints(3), jkp.empty_keypoints(2)])
-    got = tkp.concat_keypoints([tkp.empty_keypoints(3), tkp.empty_keypoints(2)])
+    got = tkp.concat_keypoints([tkp.empty_keypoints(3, "cpu"), tkp.empty_keypoints(2, "cpu")])
     assert got.capacity == want.capacity == 5 and int(got.count()) == 0
     for f in jkp.Keypoints._fields:
         g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))

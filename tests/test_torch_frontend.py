@@ -68,7 +68,7 @@ def test_frontend_matches_jax(frame, jax_dual, dual):
 
 def test_frontend_module_reuses_buffers(frame):
     cfg = tfe.sift_config(SIZE)
-    fe = tfe.SiftFrontend(cfg, SIZE, SIZE, max_keypoints=K)
+    fe = tfe.SiftFrontend(cfg, SIZE, SIZE, max_keypoints=K, device="cpu")
     assert all(b.device.type == "cpu" for b in fe.buffers())
     img = torch.from_numpy(frame.copy())
     a, b = fe(img), fe(img)

@@ -89,10 +89,10 @@ def test_match_descriptors_matches_jax(rng, name, mutual):
 
 def test_matched_points_matches_jax(rng):
     d1, d2, v1, v2 = _match_case(rng, "invalid_columns")
-    kp1 = empty_keypoints(40)._replace(x=t(rng.uniform(0, 99, 40).astype(np.float32)),
+    kp1 = empty_keypoints(40, "cpu")._replace(x=t(rng.uniform(0, 99, 40).astype(np.float32)),
                                        y=t(rng.uniform(0, 99, 40).astype(np.float32)),
                                        valid=t(v1))
-    kp2 = empty_keypoints(48)._replace(x=t(rng.uniform(0, 99, 48).astype(np.float32)),
+    kp2 = empty_keypoints(48, "cpu")._replace(x=t(rng.uniform(0, 99, 48).astype(np.float32)),
                                        y=t(rng.uniform(0, 99, 48).astype(np.float32)),
                                        valid=t(v2))
     m = tm.match_descriptors(t(d1), t(d2), t(v1), t(v2))

@@ -101,6 +101,38 @@ def test_new_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
             tpf.batched_extract_features(torch.from_numpy(frames[0]), cfg, 8)
 
 
+@pytest.mark.parametrize("entry", ["SiftFrontend", "empty_keypoints", "keypoints_from_numpy",
+                                   "features_from_numpy", "sfm_map_from_numpy"])
+def test_frontend_and_converters_default_to_the_card_and_raise_without_one(monkeypatch, entry):
+    """One rule for the package (utils/device.py): ``device=None`` means the
+    card and raises without one; the CPU is only ever asked for."""
+    from sift_parallel_optimization_tpu_torch.models import keypoints as tkp
+    from sift_parallel_optimization_tpu_torch.models import sfm as tsfm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kp = {f: np.zeros(4, np.float32) for f in tkp.Keypoints._fields}
+    feats = {"keypoints": kp, "descriptors": np.zeros((4, 128), np.float32)}
+    smap = tsfm.sfm_map_to_numpy(tsfm.empty_map(2, 4, device="cpu"))
+    calls = {
+        "SiftFrontend": lambda **kw: tfe.SiftFrontend(tfe.sift_config(32), max_keypoints=8, **kw),
+        "empty_keypoints": lambda **kw: tkp.empty_keypoints(4, **kw),
+        "keypoints_from_numpy": lambda **kw: tkp.keypoints_from_numpy(kp, **kw),
+        "features_from_numpy": lambda **kw: tfe.features_from_numpy(feats, **kw),
+        "sfm_map_from_numpy": lambda **kw: tsfm.sfm_map_from_numpy(smap, **kw),
+    }
+    for kw in ({}, {"device": None}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            calls[entry](**kw)
+    out = calls[entry](device="cpu")               # the caller asks for the CPU
+    if entry == "SiftFrontend":
+        assert out.device.type == "cpu"
+        got = out(torch.from_numpy(tnative.synth_frame(32, 0, seed=1)))
+        assert got.descriptors.shape == (8, 128) and got.descriptors.device.type == "cpu"
+    else:
+        leaves = [t for f in out for t in (f if isinstance(f, tuple) else (f,))]
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
 def test_cpu_tensors_take_plain_paths(monkeypatch):
     for mod in (tss, tpg, tst, tgr):
         monkeypatch.setattr(mod, "LAUNCHES", 0)

@@ -107,7 +107,7 @@ def _run_bootstrap(scene, key_seed):
     match = J_MATCH(jf0.descriptors, jf1.descriptors, jf0.keypoints.valid, jf1.keypoints.valid)
     _p0, _p1, pair_ok = J_MATCHED_POINTS(jf0.keypoints, jf1.keypoints, match)
     idx = np.array(J_DRAWS(key, pair_ok, 512, 8))
-    tf0, tf1 = tfe.features_from_numpy(feats[0]), tfe.features_from_numpy(feats[1])
+    tf0, tf1 = tfe.features_from_numpy(feats[0], "cpu"), tfe.features_from_numpy(feats[1], "cpu")
     tmap0 = tsfm.empty_map(3, PTS_PER_FRAME, device="cpu")
     got = tsfm.init_two_view(None, tf0, tf1, K_T, tmap0, PTS_PER_FRAME,
                              return_used_pair=True, sample_idx=t(idx))
@@ -151,7 +151,7 @@ def test_init_two_view_matches_jax_with_injected_draws(scene, key_seed):
 
 def test_init_two_view_other_slots_and_generator(scene):
     _pts, _poses, feats = scene
-    tf0, tf1 = tfe.features_from_numpy(feats[0]), tfe.features_from_numpy(feats[1])
+    tf0, tf1 = tfe.features_from_numpy(feats[0], "cpu"), tfe.features_from_numpy(feats[1], "cpu")
     m0 = tsfm.empty_map(3, PTS_PER_FRAME, device="cpu")
     gen = torch.Generator().manual_seed(3)
     m, used_b = tsfm.init_two_view(gen, tf0, tf1, K_T, m0, PTS_PER_FRAME,
@@ -200,7 +200,7 @@ def test_ransac_pnp_matches_jax_with_injected_draws(scene):
 
 def test_feature_and_map_converters_round_trip(scene):
     _pts, _poses, feats = scene
-    f = tfe.features_from_numpy(feats[0])
+    f = tfe.features_from_numpy(feats[0], "cpu")
     assert f.keypoints.valid.dtype == torch.bool and f.keypoints.octave.dtype == torch.int32
     back = tfe.features_to_numpy(f)
     for k, v in feats[0]["keypoints"].items():
@@ -209,15 +209,15 @@ def test_feature_and_map_converters_round_trip(scene):
     # Named tuples of (JAX) arrays are taken as they are, batch axis kept.
     jf = _jax_features(feats[0])
     stacked = jax.tree.map(lambda a: jnp.stack([a, a]), jf)
-    f2 = tfe.features_from_numpy(stacked)
+    f2 = tfe.features_from_numpy(stacked, "cpu")
     assert f2.descriptors.shape == (2, CAPACITY, 128)
     assert torch.equal(f2.keypoints.x[1], f.keypoints.x)
     jmap = jsfm.empty_map(2, 8)._replace(cam_valid=jnp.asarray([True, False]))
-    m = tsfm.sfm_map_from_numpy(jmap)
+    m = tsfm.sfm_map_from_numpy(jmap, "cpu")
     assert m.obs.cam_idx.dtype == torch.int32 and m.cam_valid.tolist() == [True, False]
     back = tsfm.sfm_map_to_numpy(m)
     assert back["obs"]["uv"].shape == (3 * 16 + 8 * 8, 2)
-    m2 = tsfm.sfm_map_from_numpy(back)
+    m2 = tsfm.sfm_map_from_numpy(back, "cpu")
     for a, b in zip(m[:-1] + tuple(m.obs), m2[:-1] + tuple(m2.obs)):
         assert torch.equal(a, b)
     e = tsfm.empty_map(2, 8, device="cpu")
