@@ -11,10 +11,11 @@ the entry points (the REFERENCE DoG pyramid at 512^2, S=2; the SIFT
 frontend at 512^2/K=512 and 1024^2/K=2048, S=3, on its default block-reduce
 detection branch; the frontend with fused descriptor sampling at
 512^2/K=512; the batched frontend on 8 frames at both sizes; a matched and
-verified frame pair; and the two-view bootstrap with a PnP registration of a
-third view at 2048 keypoint slots per frame) and checks their outputs
-against the port's per-frame and CPU runs and against the truth of the
-synthetic scenes. Each phase prints one line; then a JSON line of the
+verified frame pair; the two-view bootstrap with a PnP registration of a
+third view at 2048 keypoint slots per frame; and incremental SfM with loop
+closure on 50 keyframes, 128 landmarks a frame and 512 feature slots, on the
+implicit-Schur CG solver) and checks their outputs against the port's
+per-frame and CPU runs and against the truth of the synthetic scenes. Each phase prints one line; then a JSON line of the
 kernels, the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits nonzero without that line. Imports nothing of
 JAX.
@@ -115,6 +116,42 @@ PATH_KERNELS = {
     "batched 512": ("patch_gather_batched", "score_tables"),
     "batched 1024": ("patch_gather_batched", "score_tables"),
 }
+# The sfm phase: BASELINE.json configuration 4 ("incremental triangulation +
+# bundle adjustment on ~50 keyframes"), as `cli sfm` runs it (256 keypoints
+# a frame with dual orientations: 512 slots), on a seeded synthetic scene
+# built as tests/test_sfm.py builds its features (0.2 px, 0.03 descriptor
+# noise): SFM_LANDMARKS points in a box along a path that goes out
+# SFM_FRAMES // 2 steps and comes back one step past its start, each frame
+# seeing a random SFM_SLOTS of the landmarks in view. Gates: the solver
+# "auto" picks, every camera registered, a loop accepted, reprojection RMS
+# and the ATE gate of tests/test_sfm.py (2% of the trajectory's span).
+SFM_FRAMES, SFM_PTS_PER_FRAME, SFM_SLOTS, SFM_LANDMARKS = 50, 128, 512, 1200
+SFM_BOX = ((-5, -3, 6), (14, 3, 12))
+SFM_RMS_PX, SFM_ATE_FRAC = 1.0, 0.02
+# The sfm_cpu phase: the same run on the card and the CPU with the same
+# draws, SFM_CPU_FRAMES frames with SFM_CPU_STEP a frame. At the sfm phase's
+# 0.35 step (baseline / depth ~0.04) a 2e-5 px nudge of the keypoints moves
+# an 8-frame map's raw translations by 7e-3 (a CPU run against itself), and
+# card against CPU read 5.8e-3; at a 1.5 step the same nudges move them by
+# 2-3e-4. Monocular SfM fixes camera 0 but not the scale about it, so
+# rotations are held within 1e-3 rad as they are and camera centers within
+# 1e-3 scene units after the Sim(3) alignment of the card's centers onto
+# the CPU's (raw translations printed). Landmarks go through the same
+# alignment and are compared as sets (a point at an inlier margin shifts its
+# block's slots): >= 99% of the CPU run's within 2e-2 of the extent of a
+# card landmark. Their depths are the loosest numbers of the map (0.2 px at
+# depth 9 over a 1.5 baseline is ~3 cm) and a run's rounding moves them: a
+# 1e-5 px nudge of the keypoints moved landmarks by up to 1.3% of the
+# extent (median 0.5%) in a CPU run against itself, while the centers moved
+# by 1.8e-4. The scene's landmarks lie ~0.8 apart, so 2e-2 of the extent
+# (~0.1) still pairs a landmark with itself only. Valid masks differ in at
+# most 1% of slots, reprojection RMS within 1%.
+SFM_CPU_FRAMES, SFM_CPU_STEP = 8, (-1.5, 0.05, 0.1)
+SFM_CPU_POSE_ATOL, SFM_CPU_PT_RTOL, SFM_CPU_FRAC = 1e-3, 2e-2, 0.99
+# Dense and CG BA on one 20-camera map on the card: the same fixed point,
+# rotations within 1e-4 rad and the Sim(3)-aligned structure within 1e-4 of
+# its extent (the scale about camera 0 is free in monocular BA).
+BA_FP_CAMS, BA_FP_PTS, BA_FP_RTOL = 20, 400, 1e-4
 THR = 0.04 / 3          # detect.CONTRAST_THRESHOLD / S
 EDGE_RATIO = 10.0
 
@@ -490,11 +527,14 @@ def compare_frames(torch, got, ref):
     return float(same.float().mean()), dfrac
 
 
-def call_times(torch, fn, iters=20):
-    """(median ms per call between CUDA events, device ops, device ms) of fn()."""
+def call_times(torch, fn, iters=20, warmup=3, profiled=5):
+    """(median ms per call between CUDA events, device ops, device ms) of
+    fn(); ``profiled`` calls in the profiler run (a run of a call that
+    launches thousands of kernels takes the profiler seconds to read)."""
     from sift_parallel_optimization_tpu_torch.utils.profiling import cuda_time_ms
 
-    return (cuda_time_ms(fn, iters=iters),) + device_profile(torch, fn, iters=5)
+    return (cuda_time_ms(fn, warmup=warmup, iters=iters),) + device_profile(
+        torch, fn, iters=profiled)
 
 
 def fmt_times(times: dict) -> str:
@@ -734,6 +774,291 @@ def twoview_phase(torch, dev):
           f"{int(gpu['n_inl'])} inliers of {int(gpu['pnp_mask'].sum())}, {pnp_rot:.3f} deg, "
           f"{pnp_t:.4f} of |t|; CPU with the same draws: pt_valid differ in {pt_diff:.4f} of "
           f"slots, pose by {pose_diff:.2e}; " + fmt_times(times))
+
+
+def sfm_scene(n_frames, seed=0, step=(-0.35, 0.02, 0.05)):
+    """(numpy feature dicts, true rvecs, tvecs, intrinsics) of the sfm
+    phases' scene (see SFM_FRAMES), the camera moving by ``step`` a frame."""
+    from sift_parallel_optimization_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(seed)
+    k_np = np.array([[400.0, 0, 200], [0, 400.0, 150], [0, 0, 1]], np.float32)
+    pts, descs = synthetic.landmarks(rng, SFM_LANDMARKS, *SFM_BOX)
+    rv, tv = synthetic.out_and_back(n_frames, step=step, yaw=0.01, past=1 - n_frames % 2)
+    feats = [synthetic.view_features(rng, pts, descs, rv[i], tv[i], k_np, 400, 300, SFM_SLOTS,
+                                     compact=True) for i in range(n_frames)]
+    return feats, rv, tv, k_np
+
+
+def loops_written(m, n_frames, pts_per_frame) -> int:
+    """Accepted loop closures: the loop blocks of the map's observations
+    that hold an observation."""
+    tail = m.obs.valid[3 * n_frames * pts_per_frame:]
+    return int(tail.reshape(-1, pts_per_frame).any(dim=1).sum())
+
+
+def sfm_ate(torch, m, rv, tv) -> tuple[float, float]:
+    """(ATE after Sim(3) alignment, the true trajectory's span)."""
+    from sift_parallel_optimization_tpu_torch.utils.trajectory import ate_rmse, camera_centers
+
+    gt = camera_centers(torch.from_numpy(rv), torch.from_numpy(tv)).to(m.rvecs.device)
+    span = float(np.linalg.norm(np.ptp(gt.cpu().numpy(), axis=0)))
+    return float(ate_rmse(camera_centers(m.rvecs, m.tvecs), gt)), span
+
+
+def sfm_phase(torch, dev):
+    """run_sfm on SFM_FRAMES keyframes of the synthetic scene on the card,
+    against the scene's truth; then one register_frame, one mid-run BA and
+    the final BA timed on the resulting map (host clock and device)."""
+    from sift_parallel_optimization_tpu_torch.models import ba, sfm
+    from sift_parallel_optimization_tpu_torch.models.frontend import features_from_numpy
+    from sift_parallel_optimization_tpu_torch.models.matching import match_descriptors
+
+    arrays, rv, tv, k_np = sfm_scene(SFM_FRAMES)
+    feats = [features_from_numpy(a, device=dev) for a in arrays]
+    K = torch.from_numpy(k_np).to(dev)
+    n, B = SFM_FRAMES, SFM_PTS_PER_FRAME
+    solver = ba.resolve_solver(n, n * B, "auto")
+    check(solver == "cg", f"sfm: 'auto' chose {solver!r} at {n} frames x {B} landmarks")
+    walls = []
+    for _ in range(2):       # the first run pays one-time set-up; the second is warm
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = sfm.run_sfm(gen, feats, K, pts_per_frame=B)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    run_s = walls[1]
+    # One PnP RANSAC a registration (frames 2..n-1) and a loop proposal a
+    # frame from loop_min_gap + 2 = 7 on.
+    pnp_calls = (n - 2) + (n - 7)
+    n_cams = int(m.cam_valid.sum())
+    loops = loops_written(m, n, B)
+    rms = float(ba.rms_error(m.ba_state(), m.obs, K))
+    ate, span = sfm_ate(torch, m, rv, tv)
+    check(n_cams == n, f"sfm: {n_cams}/{n} cameras registered")
+    check(loops >= 1, "sfm: no loop closure was accepted")
+    check(rms < SFM_RMS_PX, f"sfm: reprojection RMS {rms:.3f} px")
+    check(ate <= SFM_ATE_FRAC * span, f"sfm: ATE {ate:.4f} over a span of {span:.3f}")
+    for t in (m.rvecs, m.tvecs, m.points):
+        check(bool(torch.isfinite(t).all()), "sfm: non-finite map entries")
+
+    # CG iterations a GN step, from the final map and from a start moved off
+    # it (the masked loop always runs cg_iters trips; these are the trips
+    # that changed the update).
+    max_obs = -(-(n + 8) // 8) * 8
+    plan = ba.make_group_plan(m.obs, n, n * B, max_obs)
+    iters = {}
+    for name, st in (("final map", m.ba_state()),
+                     ("moved", m.ba_state()._replace(points=m.points + 0.01))):
+        blk = ba.assemble_implicit_blocks(st, m.obs, K, 1e-4, 2.0, plan=plan)
+        iters[name] = int(ba.schur_pcg(blk)[1])
+    check(int(plan.n_dropped) == 0, f"sfm: the CG plan dropped {int(plan.n_dropped)} obs")
+
+    # One registration, one mid-run BA (5 GN steps) and the final BA (15),
+    # on the map the run produced: the same shapes the run gave them.
+    used = torch.zeros(SFM_SLOTS, dtype=torch.bool, device=dev)
+    kw = dict(damping=1e-4, huber_delta=2.0, solver="cg", max_obs_per_point=max_obs)
+    last = feats[n - 1]
+    m3 = match_descriptors(last.descriptors, m.pt_desc, last.keypoints.valid, m.pt_valid)
+    uv = torch.stack([last.keypoints.x, last.keypoints.y], -1)
+    calls = {
+        "register_frame": lambda: sfm.register_frame(gen, m, last, feats[n - 2], n - 1, K, used,
+                                                     B),
+        "ransac_pnp": lambda: sfm.ransac_pnp(gen, m.points[m3.idx2], uv,
+                                             m3.valid & m.pt_valid[m3.idx2], K),
+        "mid BA (5 steps)": lambda: ba.bundle_adjust(m.ba_state(), m.obs, K, n_iters=5, **kw),
+        "final BA (15 steps)": lambda: ba.bundle_adjust(m.ba_state(), m.obs, K, n_iters=15,
+                                                        **kw),
+    }
+    times = {name: call_times(torch, fn, iters=3, warmup=1, profiled=2)
+             for name, fn in calls.items()}
+    aggregation = aggregation_times(torch, m, plan, K, n)
+    top = top_kernels(torch, calls["mid BA (5 steps)"])
+    pnp_ms = times["ransac_pnp"][0]
+    share = pnp_calls * pnp_ms / 1e3 / run_s
+    phase("sfm", f"run_sfm {n} keyframes, {B} landmarks/frame, {SFM_SLOTS} slots/frame, "
+          f"{SFM_LANDMARKS} scene landmarks: solver {solver} (auto), cameras {n_cams}/{n}, "
+          f"loops accepted {loops}, landmarks {int(m.pt_valid.sum())}, observations "
+          f"{int(m.obs.valid.sum())}, reprojection RMS {rms:.4f} px (gate {SFM_RMS_PX}), ATE "
+          f"{ate:.5f} = {100 * ate / span:.3f}% of span {span:.3f} (gate "
+          f"{100 * SFM_ATE_FRAC:.0f}%); run {run_s:.3f} s wall warm ({run_s / n * 1e3:.1f} "
+          f"ms/frame; first run {walls[0]:.3f} s); "
+          f"CG iterations a GN step (of 25): final map {iters['final map']}, moved "
+          f"{iters['moved']}; {pnp_calls} ransac_pnp calls x {pnp_ms:.3f} ms = "
+          f"{100 * share:.1f}% of the run; " + fmt_times(times) + "; per-camera / per-node "
+          f"sums, device ms one-hot product vs index_add_: " + "; ".join(
+              f"{k} {a:.4f} vs {b:.4f} (max rel diff {e:.1e})"
+              for k, (a, b, e) in aggregation.items())
+          + "; mid BA device time by kernel (ms/call, launches/call): " + "; ".join(
+              f"{name[:60]} {ms:.3f} ({cnt})" for name, ms, cnt in top))
+    return m
+
+
+def top_kernels(torch, fn, n_top=6):
+    """The device kernels that take most of ``fn()``'s device time, from one
+    profiled call (the profiler run's 64 spare one-element fills aside):
+    [(name, device ms, launches)]."""
+    from torch.autograd import DeviceType
+
+    from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
+
+    _ops, _ms, prof = profile_device(fn, warmup=0, iters=1)
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+            and not e.key.startswith("sift.")]           # the profiler's own range
+    return sorted(rows, key=lambda r: -r[1])[:n_top]
+
+
+def aggregation_times(torch, m, plan, K, n):
+    """Device ms of the two ways to sum rows into groups, on this run's
+    shapes: the one-hot product the port keeps where the JAX package has it,
+    against ``index_add_`` (atomic on the card). The CG assembly's camera-side
+    sums (the 42 J^T J / J^T r columns of every grouped slot into C cameras)
+    and the pose graph's per-node sums (36 entries of every edge into N
+    nodes). Returns {name: (one-hot ms, index_add_ ms, max relative diff)}."""
+    from sift_parallel_optimization_tpu_torch.models import ba
+    from sift_parallel_optimization_tpu_torch.models.loop_closure import build_pose_graph_edges
+
+    C = m.rvecs.shape[0]
+    oh = plan.cam_oh.reshape(-1, C)
+    cols = torch.rand(oh.shape[0], 42, device=oh.device) * plan.valid.reshape(-1, 1)
+    cam = torch.where(plan.valid.reshape(-1), oh.argmax(dim=1), C)
+    # The run's graph: the chain and up to 8 loop edges.
+    edges = build_pose_graph_edges(m, n, [], [], capacity=n + 7)
+    e_vals = torch.rand(edges.i.shape[0], 36, device=oh.device)
+    e_oh = ba._one_hot(edges.i, n)
+    cases = {
+        f"CG camera sums ({oh.shape[0]} slots x 42 -> {C})": (
+            lambda: oh.T @ cols,
+            lambda: torch.zeros(C + 1, 42, device=oh.device).index_add_(0, cam, cols)[:C]),
+        f"PGO node sums ({edges.i.shape[0]} edges x 36 -> {n})": (
+            lambda: e_oh.T @ e_vals,
+            lambda: torch.zeros(n, 36, device=oh.device).index_add_(0, edges.i.long(), e_vals)),
+    }
+    out = {}
+    for name, (one_hot, atomic) in cases.items():
+        a, b = one_hot(), atomic()
+        err = float(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)))
+        out[name] = (device_profile(torch, one_hot, iters=20)[1],
+                     device_profile(torch, atomic, iters=20)[1], err)
+    return out
+
+
+def sfm_cpu_phase(torch, dev):
+    """SFM_CPU_FRAMES frames of the sfm scene through run_sfm on the card and
+    on the CPU with the same draws (those of the card run, replayed); then
+    dense and CG bundle_adjust on one BA_FP_CAMS-camera map on the card."""
+    from sift_parallel_optimization_tpu_torch.models import ba, sfm
+    from sift_parallel_optimization_tpu_torch.models.frontend import features_from_numpy
+    from sift_parallel_optimization_tpu_torch.utils import synthetic
+    from sift_parallel_optimization_tpu_torch.utils.trajectory import (
+        camera_centers,
+        umeyama_alignment,
+    )
+
+    arrays, _rv, _tv, k_np = sfm_scene(SFM_CPU_FRAMES, seed=1, step=SFM_CPU_STEP)
+    draws, gen = {}, torch.Generator(device=dev).manual_seed(1)
+
+    def record(kind, frame, valid, n_hyp, n_pts):
+        w = valid.to(torch.float32) + (~valid.any()).to(torch.float32)
+        draws[kind, frame] = torch.multinomial(w, n_hyp * n_pts, replacement=True,
+                                               generator=gen).view(n_hyp, n_pts)
+        return draws[kind, frame]
+
+    def replay(kind, frame, valid, n_hyp, n_pts):
+        return draws[kind, frame].to(valid.device)
+
+    runs = {}
+    for device, sampler in ((dev, record), ("cpu", replay)):
+        feats = [features_from_numpy(a, device=device) for a in arrays]
+        K = torch.from_numpy(k_np).to(device)
+        m = sfm.run_sfm(None, feats, K, pts_per_frame=SFM_PTS_PER_FRAME, loop_min_gap=2,
+                        sampler=sampler)
+        runs[str(device)] = (m, float(ba.rms_error(m.ba_state(), m.obs, K)))
+    (gm, g_rms), (cm, c_rms) = runs[str(dev)], runs["cpu"]
+    gm = type(gm)(*[t.cpu() for t in gm[:-1]], type(gm.obs)(*[t.cpu() for t in gm.obs]))
+    check(torch.equal(gm.cam_valid, cm.cam_valid) and bool(cm.cam_valid.all()),
+          f"sfm_cpu: cameras {gm.cam_valid.tolist()} (card) vs {cm.cam_valid.tolist()} (CPU)")
+    rot_gap = float((gm.rvecs - cm.rvecs).abs().max())
+    raw_t_gap = float((gm.tvecs - cm.tvecs).abs().max())
+    gc = camera_centers(gm.rvecs, gm.tvecs).double()
+    cc = camera_centers(cm.rvecs, cm.tvecs).double()
+    scale, R_, t_ = umeyama_alignment(gc, cc)
+    align = lambda x: scale * x @ R_.T + t_
+    c_gap = float((align(gc) - cc).abs().max())
+    check(rot_gap <= SFM_CPU_POSE_ATOL and c_gap <= SFM_CPU_POSE_ATOL,
+          f"sfm_cpu: rotations of card and CPU differ by {rot_gap:.2e} rad, aligned camera "
+          f"centers by {c_gap:.2e} (scale {float(scale):.6f}; raw translations {raw_t_gap:.2e})")
+    valid_diff = float((gm.pt_valid != cm.pt_valid).float().mean())
+    obs_diff = float((gm.obs.valid != cm.obs.valid).float().mean())
+    check(max(valid_diff, obs_diff) <= 0.01,
+          f"sfm_cpu: valid masks differ in {valid_diff:.4f} (points), {obs_diff:.4f} (obs)")
+    gp, cp = align(gm.points[gm.pt_valid].double()), cm.points[cm.pt_valid].double()
+    check(bool(torch.isfinite(gp).all() and torch.isfinite(cp).all()),
+          f"sfm_cpu: non-finite landmarks: {int((~torch.isfinite(gp)).any(1).sum())} (card), "
+          f"{int((~torch.isfinite(cp)).any(1).sum())} (CPU)")
+    extent = float((cp - cp.mean(0)).abs().max())
+    dist = torch.cdist(cp, gp).min(dim=1).values            # finite: checked above
+    pt_frac = float((dist <= SFM_CPU_PT_RTOL * extent).double().mean())
+    both = gm.pt_valid & cm.pt_valid
+    slot_gap = float((align(gm.points[both].double()) - cm.points[both].double()).abs().max())
+    check(pt_frac >= SFM_CPU_FRAC,
+          f"sfm_cpu: {pt_frac:.4f} of CPU landmarks within {SFM_CPU_PT_RTOL} of the extent "
+          f"{extent:.3f} of a card one; nearest distances median {float(dist.median()):.3e}, "
+          f"max {float(dist.max()):.3e}; slot by slot {slot_gap:.3e}; {gp.shape[0]} card and "
+          f"{cp.shape[0]} CPU landmarks")
+    check(abs(g_rms - c_rms) <= 0.01 * c_rms, f"sfm_cpu: RMS {g_rms:.4f} (card) vs {c_rms:.4f}")
+
+    # Dense vs CG on one 20-camera map on the card.
+    rng = np.random.default_rng(2)
+    C, P = BA_FP_CAMS, BA_FP_PTS
+    pts = rng.uniform((-2, -1.5, 5), (2, 1.5, 9), (P, 3))
+    rv = np.array([[0.0, 0.02 * (i - C / 2), 0.0] for i in range(C)])
+    tv = np.array([[0.15 * (i - C / 2), 0.0, 0.0] for i in range(C)])
+    kd = k_np.astype(np.float64)
+
+    def project(r, t):
+        pc = pts @ synthetic.rodrigues_np(r).T + t
+        return ((pc / pc[:, 2:]) @ kd.T)[:, :2]
+
+    uv = np.concatenate([project(rv[i], tv[i]) for i in range(C)])
+    uv += rng.normal(size=uv.shape) * 0.2
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    obs = ba.Observations(f32(np.repeat(np.arange(C), P)).int(), f32(np.tile(np.arange(P), C)).int(),
+                          f32(uv), torch.ones(C * P, dtype=torch.bool, device=dev))
+    start = ba.BAState(f32(rv + 0.005 * rng.normal(size=rv.shape)),
+                       f32(tv + 0.02 * rng.normal(size=tv.shape)),
+                       f32(pts + 0.03 * rng.normal(size=pts.shape)))
+    K = f32(k_np)
+    out = {s: ba.bundle_adjust(start, obs, K, n_iters=20, damping=1e-4, solver=s)
+           for s in ("dense", "cg")}
+    d, c = out["dense"], out["cg"]
+    ba_rot_gap = float((d.rvecs - c.rvecs).abs().max())
+    xa = torch.cat([camera_centers(d.rvecs, d.tvecs), d.points]).double()
+    xb = torch.cat([camera_centers(c.rvecs, c.tvecs), c.points]).double()
+    s_, R, t = umeyama_alignment(xb, xa)
+    gap = float((s_ * xb @ R.T + t - xa).abs().max() / (xa - xa.mean(0)).abs().max())
+    rms = {s: float(ba.rms_error(o, obs, K)) for s, o in out.items()}
+    check(ba_rot_gap <= BA_FP_RTOL and gap <= BA_FP_RTOL,
+          f"sfm_cpu: dense and CG BA differ: rotations {ba_rot_gap:.2e}, structure {gap:.2e}")
+    check(max(rms.values()) < 0.5, f"sfm_cpu: BA RMS {rms}")
+    from sift_parallel_optimization_tpu_torch.utils.profiling import cuda_time_ms
+
+    times = {s: cuda_time_ms(lambda s=s: ba.bundle_adjust(start, obs, K, n_iters=20,
+                                                          damping=1e-4, solver=s),
+                             warmup=1, iters=3) for s in ("dense", "cg")}
+    phase("sfm_cpu", f"run_sfm {SFM_CPU_FRAMES} frames, card vs CPU with the same draws: "
+          f"cameras equal, rotations within {rot_gap:.2e} rad, camera centers within "
+          f"{c_gap:.2e} after Sim(3) alignment (gate {SFM_CPU_POSE_ATOL}; scale "
+          f"{float(scale):.6f}, raw translations within {raw_t_gap:.2e}), "
+          f"{pt_frac:.4f} of CPU landmarks within {SFM_CPU_PT_RTOL} of the extent of a card "
+          f"one (gate {SFM_CPU_FRAC}), valid masks differ in {valid_diff:.4f} (points) and "
+          f"{obs_diff:.4f} (observations) of slots (gate 0.01), RMS {g_rms:.4f} vs {c_rms:.4f} "
+          f"px; dense vs CG bundle_adjust on the card: rotations within {ba_rot_gap:.2e}, "
+          f"Sim(3)-aligned structure within {gap:.2e} of its extent (gate {BA_FP_RTOL}), RMS "
+          f"{rms['dense']:.4f} / {rms['cg']:.4f} px; bundle_adjust {C} cams x {P} pts, 20 "
+          f"steps: dense {times['dense']:.3f} ms/call, cg {times['cg']:.3f} ms/call")
 
 
 def main() -> int:
@@ -1030,6 +1355,11 @@ def main() -> int:
     # 7c. A matched, verified pair and the two-view bootstrap.
     pair_phase(torch, dev, feats["batched 512"][1])
     twoview_phase(torch, dev)
+
+    # 7d. Incremental SfM with loop closure at configuration 4, and the same
+    # driver on the card against the CPU.
+    sfm_phase(torch, dev)
+    sfm_cpu_phase(torch, dev)
 
     # 8. Each path of the main path went through its kernels; the batched
     # frontend launches each of its kernels ONCE for the whole batch.

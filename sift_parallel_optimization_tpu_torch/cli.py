@@ -2,10 +2,13 @@
 
   python -m sift_parallel_optimization_tpu_torch.cli pyramid --size 512 --S 2 --device cuda
   python -m sift_parallel_optimization_tpu_torch.cli features --size 512 --device cuda
+  python -m sift_parallel_optimization_tpu_torch.cli sfm --frames 6 --size 256 --device cuda
 
-Defaults follow the JAX package's CLI (size 512, S=2, K=512). With
-``--device cuda`` and no GPU present the command fails; it never moves to
-the CPU on its own.
+Defaults follow the JAX package's CLI (size 512, S=2, K=512; sfm: 6 frames
+of 256^2). With ``--device cuda`` and no GPU present the command fails; it
+never moves to the CPU on its own. ``sfm`` renders its frames with the
+native host library, or its NumPy form where the library does not build;
+``--image-dir`` reads frames through the library.
 """
 
 from __future__ import annotations
@@ -96,6 +99,121 @@ def _cmd_features(args) -> int:
     return 0
 
 
+def _save_traj(args, rvecs, tvecs, timestamps) -> None:
+    """Export the estimated trajectory (``--save-traj``, TUM or KITTI)."""
+    if not args.save_traj:
+        return
+    from sift_parallel_optimization_tpu_torch.utils.trajectory import save_kitti, save_tum
+
+    if args.traj_format == "kitti":
+        save_kitti(args.save_traj, rvecs, tvecs)
+    else:
+        save_tum(args.save_traj, timestamps, rvecs, tvecs)
+    print(f"trajectory written to {args.save_traj} ({args.traj_format})")
+
+
+def _gt_associations(args, frame_ts):
+    """(frame indices, ground-truth centers) of ``--groundtruth``: KITTI is
+    frame-indexed, TUM is associated by timestamp."""
+    from sift_parallel_optimization_tpu_torch.utils.trajectory import (
+        associate,
+        load_kitti,
+        load_tum,
+    )
+
+    if args.gt_format == "kitti":
+        gt_centers, _ = load_kitti(args.groundtruth)
+        ia = ib = np.arange(min(len(gt_centers), len(frame_ts)))
+    else:
+        gt_ts, gt_centers, _ = load_tum(args.groundtruth)
+        ia, ib = associate(frame_ts, gt_ts, max_dt=args.max_dt)
+    return ia, gt_centers[ib]
+
+
+def _cmd_sfm(args) -> int:
+    """Incremental SfM (``models/sfm.run_sfm``) on rendered frames, or on a
+    directory of frames, with the frontend's dual orientations and 256
+    keypoints a frame; prints the map's counts, the reprojection RMS and the
+    ATE after Sim(3) alignment, as the JAX package's ``cli sfm`` does."""
+    from sift_parallel_optimization_tpu_torch.models.ba import rms_error
+    from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+    from sift_parallel_optimization_tpu_torch.models.sfm import run_sfm
+    from sift_parallel_optimization_tpu_torch.utils import native
+    from sift_parallel_optimization_tpu_torch.utils.trajectory import ate_rmse, camera_centers
+
+    dev = _device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    intrinsics = lambda f, w, h: torch.tensor(
+        [[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]], device=dev)
+    if args.image_dir:
+        # Real-data mode: frames sorted by name (TUM-style sequences name
+        # frames by timestamp, so sorting IS temporal order), each
+        # center-cropped to the smallest (height, width) of the set.
+        import pathlib
+
+        root = pathlib.Path(args.image_dir)
+        paths = sorted(p for ext in ("*.pgm", "*.ppm", "*.png") for p in root.glob(ext))
+        if len(paths) < 2:
+            print(f"need >= 2 .pgm/.ppm/.png frames in {args.image_dir}")
+            return 1
+        paths = paths[: args.frames] if args.frames else paths
+        raw = [native.imread(p) for p in paths]
+        gh = min(im.shape[0] for im in raw)
+        gw = min(im.shape[1] for im in raw)
+        crop = lambda im, y0, x0: im[y0:y0 + gh, x0:x0 + gw]
+        imgs = [crop(im, (im.shape[0] - gh) // 2, (im.shape[1] - gw) // 2) for im in raw]
+        size = min(gh, gw)
+        K = intrinsics(args.focal or float(size), gw, gh)
+        frame_ts = []
+        for i, p in enumerate(paths):
+            try:
+                frame_ts.append(float(p.stem))
+            except ValueError:
+                frame_ts.append(float(i))
+        gt = None
+    else:
+        size = args.size
+        focal = float(size)
+        K = intrinsics(focal, size, size)
+        gh = gw = size
+        # Ground-truth trajectory through the native 3-D blob cloud: sideways
+        # translation + slight yaw (real parallax).
+        gt_r = np.stack([[0.0, 0.03 * i, 0.0] for i in range(args.frames)]).astype(np.float32)
+        gt_t = np.stack([[-0.35 * i, 0.0, 0.04 * i] for i in range(args.frames)]).astype(
+            np.float32)
+        imgs = [native.render_frame(size, gt_r[i], gt_t[i], focal, seed=args.seed)
+                for i in range(args.frames)]
+        frame_ts = [float(i) for i in range(len(imgs))]
+        gt = camera_centers(torch.from_numpy(gt_r).to(dev), torch.from_numpy(gt_t).to(dev))
+    fe = SiftFrontend(sift_config(size), gh, gw, max_keypoints=256, dual_orientation=True,
+                      device=dev)
+    feats = [fe(torch.from_numpy(np.ascontiguousarray(im)).to(dev)) for im in imgs]
+    m = run_sfm(gen, feats, K, pair_selection=args.pair_selection)
+    print(f"cameras: {int(m.cam_valid.sum())}/{len(imgs)}  "
+          f"landmarks: {int(m.pt_valid.sum())}  "
+          f"observations: {int(m.obs.valid.sum())}")
+    print(f"reprojection RMS: {float(rms_error(m.ba_state(), m.obs, K)):.3f} px")
+    if args.image_dir:
+        print(f"trajectory extent: {np.ptp(m.tvecs.cpu().numpy(), axis=0).round(3).tolist()}")
+    _save_traj(args, m.rvecs, m.tvecs, frame_ts)
+    est = camera_centers(m.rvecs, m.tvecs)
+    if args.groundtruth:
+        ia, gt_c = _gt_associations(args, frame_ts)
+        if len(ia) < 3:
+            print(f"only {len(ia)} frame<->gt associations; no ATE")
+            return 1
+        ate = float(ate_rmse(est[torch.from_numpy(ia).to(dev)], torch.from_numpy(gt_c).to(dev)))
+        span = float(np.linalg.norm(np.ptp(gt_c, axis=0)))
+        print(f"ATE vs {args.groundtruth} over {len(ia)} poses: "
+              f"{ate:.4f} ({100 * ate / max(span, 1e-9):.2f}% of span {span:.3f})")
+        return 0
+    if gt is not None:
+        ate = float(ate_rmse(est, gt))
+        span = float(np.linalg.norm(np.ptp(gt.cpu().numpy(), axis=0)))
+        print(f"ATE (Sim3-aligned): {ate:.4f}  (trajectory span {span:.2f})")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sift_parallel_optimization_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -113,6 +231,29 @@ def main(argv=None) -> int:
         else:
             c.add_argument("--max-keypoints", type=int, default=512)
         c.set_defaults(fn=fn)
+    s = sub.add_parser("sfm", help="incremental SfM on rendered or real frames")
+    s.add_argument("--frames", type=int, default=6)
+    s.add_argument("--size", type=int, default=256)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--image-dir", default=None,
+                   help="directory of .pgm/.ppm/.png frames (real-data mode)")
+    s.add_argument("--focal", type=float, default=None,
+                   help="focal length in px (default: image side)")
+    s.add_argument("--groundtruth", default=None, help="trajectory file to gate ATE against")
+    s.add_argument("--gt-format", choices=("tum", "kitti"), default="tum",
+                   help="ground-truth format: TUM (timestamped quats) or KITTI "
+                        "(frame-indexed 3x4 poses)")
+    s.add_argument("--pair-selection", choices=("sequential", "covisibility"),
+                   default="sequential",
+                   help="registration order: 'sequential' (frame i vs i-1) or "
+                        "'covisibility' (pairwise match-count table -> maximum-"
+                        "covisibility spanning-tree order)")
+    s.add_argument("--save-traj", default=None, help="write the estimated trajectory here")
+    s.add_argument("--traj-format", choices=("tum", "kitti"), default="tum")
+    s.add_argument("--max-dt", type=float, default=0.02,
+                   help="max timestamp gap for frame<->gt association (s)")
+    s.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    s.set_defaults(fn=_cmd_sfm)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -11,10 +11,8 @@ point) and comes back with a leading (B,) axis on every field.
 
 from __future__ import annotations
 
-from collections.abc import Mapping
 from typing import NamedTuple
 
-import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -33,18 +31,13 @@ from sift_parallel_optimization_tpu_torch.models.keypoints import (
     Keypoints,
     keypoints_from_numpy,
 )
+from sift_parallel_optimization_tpu_torch.utils.convert import field, tensor_from_numpy
 from sift_parallel_optimization_tpu_torch.utils.device import resolve_device
 
 
 class Features(NamedTuple):
     keypoints: Keypoints
     descriptors: torch.Tensor  # (K, 128) f32, zero in invalid slots
-
-
-def field(obj, name: str):
-    """``name`` of a mapping or of a (named) tuple: the two forms the
-    ``*_from_numpy`` converters take."""
-    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
 
 
 def features_from_numpy(arrays, device=None) -> Features:
@@ -57,8 +50,7 @@ def features_from_numpy(arrays, device=None) -> Features:
     kp = field(arrays, "keypoints")
     return Features(
         keypoints=keypoints_from_numpy({f: field(kp, f) for f in Keypoints._fields}, device),
-        descriptors=torch.as_tensor(
-            np.array(field(arrays, "descriptors")), dtype=torch.float32).to(device),
+        descriptors=tensor_from_numpy(field(arrays, "descriptors"), torch.float32, device),
     )
 
 

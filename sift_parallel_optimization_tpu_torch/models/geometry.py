@@ -275,7 +275,9 @@ def rotation_log(R: torch.Tensor) -> torch.Tensor:
     cos_t = torch.clamp((trace - 1) / 2, -1.0, 1.0)
     # atan2(|v|/2, cos) is well conditioned everywhere, unlike arccos whose
     # f32 error near +-1 gets amplified by theta/(2 sin theta).
-    theta = torch.atan2(nv / 2.0, cos_t)
+    # |v / 2| is |v| / 2 bit for bit (halving is exact); it keeps a 0-d tensor
+    # times a Python float out of torch.func.jacfwd, which promotes that to fp64.
+    theta = torch.atan2(torch.linalg.vector_norm(v * 0.5, dim=-1), cos_t)
     # w = v * theta / |v|; as theta -> 0 the ratio -> 1/2 (continuous).
     ratio = torch.where(nv > 1e-6, theta / torch.clamp(nv, min=1e-12),
                         torch.full_like(nv, 0.5))
@@ -286,7 +288,8 @@ def rotation_log(R: torch.Tensor) -> torch.Tensor:
     k = torch.argmax(torch.diagonal(B, dim1=-2, dim2=-1), dim=-1)
     col = torch.gather(B, -1, k[..., None, None].expand(*B.shape[:-1], 1))[..., 0]
     axis = col / torch.clamp(torch.linalg.vector_norm(col, dim=-1, keepdim=True), min=1e-12)
-    sign = torch.where((axis * v).sum(-1) < 0, -1.0, 1.0)
+    one = torch.ones_like(theta)
+    sign = torch.where((axis * v).sum(-1) < 0, -one, one)
     w_pi = axis * (theta * sign)[..., None]
     return torch.where((theta > math.pi - 3e-4)[..., None], w_pi, w_general)
 

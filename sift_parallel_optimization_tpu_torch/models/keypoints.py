@@ -8,9 +8,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
+from sift_parallel_optimization_tpu_torch.utils.convert import tuple_from_numpy
 from sift_parallel_optimization_tpu_torch.utils.device import resolve_device
 
 
@@ -77,14 +77,8 @@ def top_k_keypoints(kp: Keypoints, k: int) -> Keypoints:
     return out._replace(valid=out.valid & torch.isfinite(top))
 
 
-def keypoints_from_numpy(arrays: dict, device=None) -> Keypoints:
-    """Keypoints from a dict of per-field numpy arrays (e.g. the JAX
+def keypoints_from_numpy(arrays, device=None) -> Keypoints:
+    """Keypoints from per-field numpy arrays (a dict, or e.g. the JAX
     detector's output converted with ``np.asarray``). ``device`` None means
     the card, and raises without one."""
-    device = resolve_device(device)
-    return Keypoints(**{
-        f: torch.as_tensor(
-            np.array(arrays[f]), dtype=_DTYPES.get(f, torch.float32)
-        ).to(device)
-        for f in Keypoints._fields
-    })
+    return tuple_from_numpy(Keypoints, arrays, _DTYPES, device)

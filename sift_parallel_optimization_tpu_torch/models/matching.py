@@ -100,9 +100,14 @@ def _sample_indices(
 ) -> torch.Tensor:
     """(n_hyp, n_pts) int64 indices drawn uniformly, with replacement, from
     the valid slots (repeats make a sample degenerate and it scores -1,
-    which is fine), or ``sample_idx`` itself when given. With no valid slot
-    every slot is drawn from instead (no host sync on the count): every
-    hypothesis then scores zero inliers under the same mask."""
+    which is fine), or ``sample_idx`` itself when given. ``sample_idx`` may
+    also be a callable ``(valid, n_hyp, n_pts) -> indices``: a driver that
+    computes the mask inside (``models/sfm.run_sfm``) takes another
+    implementation's draws that way. With no valid slot every slot is drawn
+    from instead (no host sync on the count): every hypothesis then scores
+    zero inliers under the same mask."""
+    if callable(sample_idx):
+        sample_idx = torch.as_tensor(sample_idx(valid, n_hyp, n_pts))
     if sample_idx is not None:
         if tuple(sample_idx.shape) != (n_hyp, n_pts):
             raise ValueError(f"sample_idx must be ({n_hyp}, {n_pts}), got "

@@ -75,11 +75,12 @@ def _load():
         except (OSError, subprocess.CalledProcessError) as e:
             _build_error = str(e)
             return None
-        lib.sift_read_pgm.restype = ctypes.c_int
-        lib.sift_read_pgm.argtypes = [
-            ctypes.c_char_p, _F32P, ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int), ctypes.c_long,
-        ]
+        for reader in (lib.sift_read_pgm, lib.sift_read_ppm, lib.sift_read_png):
+            reader.restype = ctypes.c_int
+            reader.argtypes = [
+                ctypes.c_char_p, _F32P, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int), ctypes.c_long,
+            ]
         lib.sift_write_pgm.restype = ctypes.c_int
         lib.sift_write_pgm.argtypes = [ctypes.c_char_p, _F32P, ctypes.c_int, ctypes.c_int]
         lib.sift_synth_frame.restype = None
@@ -99,8 +100,8 @@ def _require():
     return lib
 
 
-def _pgm_dims(path) -> tuple[int, int]:
-    """Parse (w, h) from a P5/P2 header without reading pixel data."""
+def _pnm_dims(path, magics: tuple[bytes, ...]) -> tuple[int, int]:
+    """Parse (w, h) from a PNM header without reading pixel data."""
     with open(path, "rb") as f:
         head = f.read(4096)
     tokens = []
@@ -117,24 +118,56 @@ def _pgm_dims(path) -> tuple[int, int]:
                 j += 1
             tokens.append(head[i:j])
             i = j
-    if len(tokens) < 3 or tokens[0] not in (b"P5", b"P2"):
-        raise IOError(f"{path}: not a PGM header")
+    if len(tokens) < 3 or tokens[0] not in magics:
+        raise IOError(f"{path}: not a {magics} header")
     return int(tokens[1]), int(tokens[2])
 
 
-def read_pgm(path: str | os.PathLike) -> np.ndarray:
-    """Read a P5/P2 PGM into a (H, W) float32 array in [0, 1]."""
+def _png_dims(path) -> tuple[int, int]:
+    """Parse (w, h) from the PNG IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if len(head) < 24 or head[:8] != b"\x89PNG\r\n\x1a\n":
+        raise IOError(f"{path}: not a PNG")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def _read_via(fn_name: str, path, w0: int, h0: int) -> np.ndarray:
     lib = _require()
-    w0, h0 = _pgm_dims(path)
     buf = np.empty(w0 * h0, np.float32)
     w, h = ctypes.c_int(), ctypes.c_int()
-    rc = lib.sift_read_pgm(
+    rc = getattr(lib, fn_name)(
         str(path).encode(), buf.ctypes.data_as(_F32P),
         ctypes.byref(w), ctypes.byref(h), ctypes.c_long(w0 * h0),
     )
     if rc != 0:
-        raise IOError(f"sift_read_pgm({path}) failed with code {rc}")
+        raise IOError(f"{fn_name}({path}) failed with code {rc}")
     return buf[: w.value * h.value].reshape(h.value, w.value)
+
+
+def read_pgm(path: str | os.PathLike) -> np.ndarray:
+    """Read a P5/P2 PGM into a (H, W) float32 array in [0, 1]."""
+    return _read_via("sift_read_pgm", path, *_pnm_dims(path, (b"P5", b"P2")))
+
+
+def read_ppm(path: str | os.PathLike) -> np.ndarray:
+    """Read a P6/P3 PPM as (H, W) float32 grayscale (Rec.601 luma)."""
+    return _read_via("sift_read_ppm", path, *_pnm_dims(path, (b"P6", b"P3")))
+
+
+def read_png(path: str | os.PathLike) -> np.ndarray:
+    """Read a PNG (gray/RGB/RGBA, 8/16-bit) as (H, W) float32 grayscale."""
+    return _read_via("sift_read_png", path, *_png_dims(path))
+
+
+def imread(path: str | os.PathLike) -> np.ndarray:
+    """Read a PGM/PPM/PNG image as (H, W) float32 grayscale in [0, 1]."""
+    readers = {".pgm": read_pgm, ".ppm": read_ppm, ".png": read_png}
+    ext = os.path.splitext(str(path))[1].lower()
+    if ext not in readers:
+        raise IOError(f"{path}: unsupported image extension {ext!r} "
+                      f"(supported: {sorted(readers)})")
+    return readers[ext](path)
 
 
 def write_pgm(path: str | os.PathLike, img: np.ndarray) -> None:
@@ -161,8 +194,12 @@ def synth_frame(size: int, frame_idx: int, seed: int = 0) -> np.ndarray:
 def render_frame(
     size: int, rvec: np.ndarray, tvec: np.ndarray, focal: float, seed: int = 0
 ) -> np.ndarray:
-    """Pinhole view of a deterministic 3-D blob cloud (real parallax)."""
-    lib = _require()
+    """Pinhole view of a deterministic 3-D blob cloud (real parallax), native
+    path; NumPy fallback (:func:`_render_frame_numpy`) where the library
+    cannot be built."""
+    lib = _load()
+    if lib is None:
+        return _render_frame_numpy(size, rvec, tvec, focal, seed)
     out = np.empty(size * size, np.float32)
     rv = np.ascontiguousarray(rvec, np.float32)
     tv = np.ascontiguousarray(tvec, np.float32)
@@ -199,3 +236,73 @@ def _synth_frame_numpy(size: int, frame_idx: int, seed: int) -> np.ndarray:
     fr = np.random.default_rng(seed * 1000003 + frame_idx)
     img += 0.06 * (fr.random((size, size), np.float32) - 0.5)
     return np.clip(img, 0.0, 1.0)
+
+
+_M64 = (1 << 64) - 1
+
+
+def _uniforms(state: int, n: int) -> tuple[np.ndarray, int]:
+    """``n`` draws of the native library's ``uniform01`` (xorshift64*) from
+    ``state``, and the state after them."""
+    out = np.empty(n, np.float32)
+    s = state
+    for k in range(n):
+        s ^= s >> 12
+        s ^= (s << 25) & _M64
+        s ^= s >> 27
+        out[k] = ((s * 0x2545F4914F6CDD1D) & _M64) >> 40
+    return out * np.float32(1.0 / 16777216.0), s
+
+
+def _f32_bits(x) -> int:
+    return int(np.asarray(x, np.float32).view(np.uint32))
+
+
+def _render_frame_numpy(size: int, rvec, tvec, focal: float, seed: int) -> np.ndarray:
+    """NumPy form of the native ``sift_render_frame``: the same generator,
+    scene and noise in float32, blob by blob (``exp`` may differ from the C
+    library's in the last bit)."""
+    f32 = np.float32
+    rv = np.asarray(rvec, f32)
+    tv = np.asarray(tvec, f32)
+    th = np.sqrt(rv[0] * rv[0] + rv[1] * rv[1] + rv[2] * rv[2])
+    R = np.eye(3, dtype=f32)
+    if th > f32(1e-8):
+        kx, ky, kz = rv[0] / th, rv[1] / th, rv[2] / th
+        c, s, v = np.cos(th), np.sin(th), f32(1.0) - np.cos(th)
+        R = np.array([[c + kx * kx * v, kx * ky * v - kz * s, kx * kz * v + ky * s],
+                      [ky * kx * v + kz * s, c + ky * ky * v, ky * kz * v - kx * s],
+                      [kz * kx * v - ky * s, kz * ky * v + kx * s, c + kz * kz * v]], f32)
+    out = np.full((size, size), 0.5, f32)
+    focal = f32(focal)
+    centre = f32(size) * f32(0.5)
+    draws, _ = _uniforms((seed * 0x9E3779B97F4A7C15 + 777) & _M64, 5 * 220)
+    for b in range(220):
+        d = draws[5 * b: 5 * b + 5]
+        X, Y = (d[0] - f32(0.5)) * f32(12.0), (d[1] - f32(0.5)) * f32(9.0)
+        Z, wsig = f32(6.0) + d[2] * f32(12.0), f32(0.05) + d[3] * f32(0.12)
+        amp = (d[4] - f32(0.5)) * f32(0.9)
+        xc = R[0, 0] * X + R[0, 1] * Y + R[0, 2] * Z + tv[0]
+        yc = R[1, 0] * X + R[1, 1] * Y + R[1, 2] * Z + tv[1]
+        zc = R[2, 0] * X + R[2, 1] * Y + R[2, 2] * Z + tv[2]
+        if zc < f32(0.5):
+            continue
+        u = focal * xc / zc + centre
+        v = focal * yc / zc + centre
+        sig = max(focal * wsig / zc, f32(0.8))
+        r = int(f32(3.0) * sig) + 1
+        if u + r < 0 or u - r >= size or v + r < 0 or v - r >= size:
+            continue
+        y0, y1 = max(int(v) - r, 0), min(int(v) + r, size - 1)
+        x0, x1 = max(int(u) - r, 0), min(int(u) + r, size - 1)
+        inv = f32(1.0) / (f32(2.0) * sig * sig)
+        dy2 = (np.arange(y0, y1 + 1, dtype=f32) - v) ** 2
+        dx2 = (np.arange(x0, x1 + 1, dtype=f32) - u) ** 2
+        out[y0:y1 + 1, x0:x1 + 1] += amp * np.exp(-(dx2[None, :] + dy2[:, None]) * inv)
+    pose_hash = 0
+    for i in range(3):
+        pose_hash = ((pose_hash * 0x100000001B3) & _M64) ^ _f32_bits(rv[i])
+        pose_hash = ((pose_hash * 0x100000001B3) & _M64) ^ _f32_bits(tv[i])
+    noise, _ = _uniforms((seed * 0x2545F4914F6CDD1D + 99991 + pose_hash) & _M64, size * size)
+    out += f32(0.02) * (noise.reshape(size, size) - f32(0.5))
+    return np.clip(out, f32(0.0), f32(1.0))

@@ -261,3 +261,102 @@ def test_main_path_launches_the_kernels(dev, monkeypatch):
     assert (ss.LAUNCHES, pg.LAUNCHES, st.LAUNCHES, gr.LAUNCHES) == (1, 1, 2, 1)
     assert int(feats.keypoints.count()) > 0
     assert torch.equal(feats.keypoints.valid, fused.keypoints.valid)
+
+
+def _ba_problem(n_cams=8, n_pts=80, seed=0):
+    """Cameras on an arc observing every point (tests/test_geometry_ba.py's
+    scene, numpy only), a perturbed start and a few outliers."""
+    from sift_parallel_optimization_tpu_torch.models import ba
+    from sift_parallel_optimization_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1, 1, (n_pts, 3)).astype(np.float32) + np.float32([0, 0, 6])
+    rv = np.array([[0.0, 0.08 * (i - n_cams / 2), 0.0] for i in range(n_cams)], np.float32)
+    tv = np.array([[0.4 * (i - n_cams / 2), 0.0, 0.0] for i in range(n_cams)], np.float32)
+    k = np.array([[400.0, 0, 200], [0, 400.0, 150], [0, 0, 1]], np.float64)
+
+    def project(r, t):
+        pc = pts @ synthetic.rodrigues_np(r).T + t
+        return ((pc / pc[:, 2:]) @ k.T)[:, :2]
+
+    uv = np.concatenate([project(rv[i], tv[i]) for i in range(n_cams)]).astype(np.float32)
+    k = k.astype(np.float32)
+    uv[::17] += 40.0
+    obs = ba.Observations(torch.from_numpy(np.repeat(np.arange(n_cams), n_pts).astype(np.int32)),
+                          torch.from_numpy(np.tile(np.arange(n_pts), n_cams).astype(np.int32)),
+                          torch.from_numpy(uv), torch.ones(n_cams * n_pts, dtype=torch.bool))
+    start = ba.BAState(torch.from_numpy(rv + 0.01 * rng.normal(size=rv.shape).astype(np.float32)),
+                       torch.from_numpy(tv + 0.03 * rng.normal(size=tv.shape).astype(np.float32)),
+                       torch.from_numpy(pts + 0.05 * rng.normal(size=pts.shape).astype(np.float32)))
+    return start, obs, torch.from_numpy(k)
+
+
+def _to(tup, dev):
+    return type(tup)(*[t.to(dev) for t in tup])
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_bundle_adjust_on_the_card_matches_cpu(dev, solver):
+    """The same GN steps on CUDA and CPU tensors: other summation orders,
+    so states within 1e-4 of the scene's extent."""
+    from sift_parallel_optimization_tpu_torch.models import ba
+
+    start, obs, k = _ba_problem()
+    kw = dict(n_iters=8, damping=1e-4, huber_delta=2.0, solver=solver)
+    cpu = ba.bundle_adjust(start, obs, k, **kw)
+    gpu = ba.bundle_adjust(_to(start, dev), _to(obs, dev), k.to(dev), **kw)
+    for c, g in zip(cpu, gpu):
+        assert g.is_cuda
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * float(c.abs().max())
+    assert float(ba.rms_error(gpu, _to(obs, dev), k.to(dev))) < 30.0
+
+
+def test_optimize_pose_graph_on_the_card_matches_cpu(dev):
+    from sift_parallel_optimization_tpu_torch.models import pose_graph as pgo
+
+    rng = np.random.default_rng(1)
+    n = 10
+    rv = (rng.normal(size=(n, 3)) * 0.2).astype(np.float32)
+    tv = rng.normal(size=(n, 3)).astype(np.float32)
+    i = np.array(list(range(n - 1)) + [n - 1, 0, 0], np.int32)
+    j = np.array(list(range(1, n)) + [0, 0, 0], np.int32)
+    rel = pgo.relative_pose(*[torch.from_numpy(a) for a in (rv[i], tv[i], rv[j], tv[j])])
+    noise = lambda a: a + torch.from_numpy(rng.normal(size=a.shape).astype(np.float32)) * 0.02
+    edges = pgo.PoseGraphEdges(torch.from_numpy(i), torch.from_numpy(j), noise(rel[0]),
+                               noise(rel[1]), torch.tensor([1.0] * n + [0.0, 0.0]))
+    poses = pgo.Poses(torch.from_numpy(rv) + 0.05, torch.from_numpy(tv) + 0.1)
+    cpu = pgo.optimize_pose_graph(poses, edges, n_iters=10)
+    gpu = pgo.optimize_pose_graph(_to(poses, dev), _to(edges, dev), n_iters=10)
+    for c, g in zip(cpu, gpu):
+        assert bool(torch.isfinite(g).all())
+        assert float((g.cpu() - c).abs().max()) < 1e-4
+
+
+def test_solvers_run_with_tf32_off_and_restore_it(dev, monkeypatch):
+    """bundle_adjust and optimize_pose_graph pin fp32 matmuls inside (the
+    caller's TF32 setting is put back after)."""
+    from sift_parallel_optimization_tpu_torch.models import ba
+    from sift_parallel_optimization_tpu_torch.models import pose_graph as pgo
+
+    seen = []
+    solve_ex = torch.linalg.solve_ex
+
+    def spy(*args, **kwargs):
+        seen.append((torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32))
+        return solve_ex(*args, **kwargs)
+
+    monkeypatch.setattr(torch.linalg, "solve_ex", spy)
+    start, obs, k = _ba_problem(n_cams=4, n_pts=30)
+    torch.set_float32_matmul_precision("high")
+    try:
+        ba.bundle_adjust(_to(start, dev), _to(obs, dev), k.to(dev), n_iters=2)
+        poses = pgo.Poses(torch.zeros(3, 3, device=dev), torch.zeros(3, 3, device=dev))
+        edges = pgo.PoseGraphEdges(torch.tensor([0, 1], dtype=torch.int32, device=dev),
+                                   torch.tensor([1, 2], dtype=torch.int32, device=dev),
+                                   torch.zeros(2, 3, device=dev), torch.ones(2, 3, device=dev),
+                                   torch.ones(2, device=dev))
+        pgo.optimize_pose_graph(poses, edges, n_iters=2)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert len(seen) == 4 and all(s == ("highest", False) for s in seen)

@@ -16,10 +16,10 @@ from sift_parallel_optimization_tpu.models import descriptor as jdesc
 from sift_parallel_optimization_tpu.models import detect as jdet
 from sift_parallel_optimization_tpu.models import frontend as jfe
 from sift_parallel_optimization_tpu.ops import patch_gather as jpg
-from sift_parallel_optimization_tpu.utils import native as jnative
 from sift_parallel_optimization_tpu_torch.models import descriptor as tdesc
 from sift_parallel_optimization_tpu_torch.models.keypoints import keypoints_from_numpy
 from sift_parallel_optimization_tpu_torch.ops import patch_gather as tpg
+from sift_parallel_optimization_tpu_torch.utils import native as tnative
 
 # Orientation: 1e-3 rad; descriptors: atol 1e-3 -- the tolerance
 # tests/test_sift_frontend.py sets between two JAX programs that sum the
@@ -70,7 +70,7 @@ def jax_stage():
     """JAX Gaussian octaves and detector keypoints of a 256^2 frame."""
     size = 256
     cfg = jfe.sift_config(size)
-    img = jnp.asarray(jnative.synth_frame(size, 0, seed=0))
+    img = jnp.asarray(tnative.synth_frame(size, 0, seed=0))
 
     def run(x):
         gauss = jpr.sift_gaussian_pyramid(x, cfg)

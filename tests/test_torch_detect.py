@@ -14,10 +14,10 @@ from sift_parallel_optimization_tpu.core import pyramid_ref as jpr
 from sift_parallel_optimization_tpu.models import detect as jdet
 from sift_parallel_optimization_tpu.models import frontend as jfe
 from sift_parallel_optimization_tpu.models import keypoints as jkp
-from sift_parallel_optimization_tpu.utils import native as jnative
 from sift_parallel_optimization_tpu_torch.models import detect as tdet
 from sift_parallel_optimization_tpu_torch.models import frontend as tfe
 from sift_parallel_optimization_tpu_torch.models import keypoints as tkp
+from sift_parallel_optimization_tpu_torch.utils import native as tnative
 
 # Keypoint coordinates and scales: the same f32 expressions on the same
 # inputs; 1e-4 px absorbs an ulp of exp2 or of a fused multiply-add in XLA.
@@ -32,7 +32,7 @@ def _jax_dogs(size, S, img):
 
 @pytest.fixture(scope="module")
 def dogs256():
-    return _jax_dogs(256, 3, jnative.synth_frame(256, 0, seed=0))
+    return _jax_dogs(256, 3, tnative.synth_frame(256, 0, seed=0))
 
 
 def assert_same_keypoints(got, want):

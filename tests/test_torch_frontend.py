@@ -8,9 +8,9 @@ import pytest
 import torch
 
 from sift_parallel_optimization_tpu.models import frontend as jfe
-from sift_parallel_optimization_tpu.utils import native as jnative
 from sift_parallel_optimization_tpu_torch import cli as tcli
 from sift_parallel_optimization_tpu_torch.models import frontend as tfe
+from sift_parallel_optimization_tpu_torch.utils import native as tnative
 
 SIZE, K = 256, 256
 # Coordinates: the pyramids agree to ~3e-7 (the JAX tail uses precomposed
@@ -24,7 +24,10 @@ DESC_ATOL = 1e-3
 
 @pytest.fixture(scope="module")
 def frame():
-    return jnative.synth_frame(SIZE, 0, seed=0)
+    # The keypoint floors below assume the native frame, not the NumPy
+    # fallback: a toolchain that cannot build the library fails here.
+    assert tnative._load() is not None, tnative._build_error
+    return tnative.synth_frame(SIZE, 0, seed=0)
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +82,7 @@ def test_frontend_module_reuses_buffers(frame):
 
 
 def test_frontend_rectangular():
-    img = jnative.synth_frame(160, 1, seed=3)[:96, :160].copy()
+    img = tnative.synth_frame(160, 1, seed=3)[:96, :160].copy()
     out = tfe.extract_features(torch.from_numpy(img), tfe.sift_config(96), 64)
     norms = torch.linalg.vector_norm(out.descriptors, dim=1)
     v = out.keypoints.valid

@@ -14,10 +14,10 @@ import torch
 from sift_parallel_optimization_tpu.models import descriptor as jdesc
 from sift_parallel_optimization_tpu.models import frontend as jfe
 from sift_parallel_optimization_tpu.ops.descriptor_fused import gather_resample_pallas
-from sift_parallel_optimization_tpu.utils import native as jnative
 from sift_parallel_optimization_tpu_torch.models import descriptor as tdesc
 from sift_parallel_optimization_tpu_torch.models import frontend as tfe
 from sift_parallel_optimization_tpu_torch.ops import gather_resample as tgr
+from sift_parallel_optimization_tpu_torch.utils import native as tnative
 
 # tests/test_descriptor_fused.py's tolerance: the sums run in another order.
 ATOL = RTOL = 1e-5
@@ -104,7 +104,10 @@ def test_fused_sampling_frontend_matches_jax(monkeypatch):
     """The port's frontend with USE_FUSED_SAMPLING against the JAX frontend's
     default branch (its fused branch runs only on a TPU)."""
     size, k = 256, 256
-    frame = jnative.synth_frame(size, 0, seed=0)
+    # The keypoint floor below assumes the native frame, not the NumPy
+    # fallback: a toolchain that cannot build the library fails here.
+    assert tnative._load() is not None, tnative._build_error
+    frame = tnative.synth_frame(size, 0, seed=0)
     want = jax.jit(lambda x: jfe.extract_features(x, jfe.sift_config(size), k))(
         jnp.asarray(frame))
     monkeypatch.setattr(tdesc, "USE_FUSED_SAMPLING", True)

@@ -14,10 +14,10 @@ import sift_parallel_optimization_tpu.ops.scale_space_pallas as jssp
 from sift_parallel_optimization_tpu.config import PyramidConfig as JaxConfig
 from sift_parallel_optimization_tpu.config import ScaleSpaceMode as JaxMode
 from sift_parallel_optimization_tpu.core import pyramid_ref as jpr
-from sift_parallel_optimization_tpu.utils import native as jnative
 from sift_parallel_optimization_tpu_torch.config import PyramidConfig, ScaleSpaceMode
 from sift_parallel_optimization_tpu_torch.core import pyramid_ref as tpr
 from sift_parallel_optimization_tpu_torch.ops import scale_space as tss
+from sift_parallel_optimization_tpu_torch.utils import native as tnative
 
 # REFERENCE tolerance of tests/test_scale_space_pallas.py: the Pallas body
 # computes prev - g where the jnp form computes base * (W_s - W_{s+1}), so
@@ -132,7 +132,7 @@ def test_blur_matrix_matches_jax():
 
 @pytest.mark.parametrize("size", [64, 256])
 def test_sift_pyramid_matches_jax(size):
-    img = jnative.synth_frame(size, 0, seed=1)
+    img = tnative.synth_frame(size, 0, seed=1)
     jcfg = JaxConfig(length=size, S=3, mode=JaxMode.SIFT)
     tcfg = PyramidConfig(length=size, S=3, mode=ScaleSpaceMode.SIFT)
     want = jpr.sift_gaussian_pyramid(jnp.asarray(img), jcfg)
