@@ -12,10 +12,14 @@ frontend at 512^2/K=512 and 1024^2/K=2048, S=3, on its default block-reduce
 detection branch; the frontend with fused descriptor sampling at
 512^2/K=512; the batched frontend on 8 frames at both sizes; a matched and
 verified frame pair; the two-view bootstrap with a PnP registration of a
-third view at 2048 keypoint slots per frame; and incremental SfM with loop
+third view at 2048 keypoint slots per frame; incremental SfM with loop
 closure on 50 keyframes, 128 landmarks a frame and 512 feature slots, on the
-implicit-Schur CG solver) and checks their outputs against the port's
-per-frame and CPU runs and against the truth of the synthetic scenes. Each phase prints one line; then a JSON line of the
+implicit-Schur CG solver; the SE(3) and Sim(3) pose-graph solvers on
+synthetic graphs up to 1,000 nodes; and the tracking step: windowed odometry
+over 120 rendered frames through the batched frontend, with archive loop
+closure, its steady step as CUDA graphs) and checks their outputs against
+the port's per-frame, eager and CPU runs and against the truth of the
+synthetic scenes. Each phase prints one line; then a JSON line of the
 kernels, the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits nonzero without that line. Imports nothing of
 JAX.
@@ -115,6 +119,7 @@ PATH_KERNELS = {
     "fused": ("score_tables", "gather_resample"),
     "batched 512": ("patch_gather_batched", "score_tables"),
     "batched 1024": ("patch_gather_batched", "score_tables"),
+    "odometry": ("patch_gather_batched", "score_tables"),
 }
 # The sfm phase: BASELINE.json configuration 4 ("incremental triangulation +
 # bundle adjustment on ~50 keyframes"), as `cli sfm` runs it (256 keypoints
@@ -152,6 +157,45 @@ SFM_CPU_POSE_ATOL, SFM_CPU_PT_RTOL, SFM_CPU_FRAC = 1e-3, 2e-2, 0.99
 # rotations within 1e-4 rad and the Sim(3)-aligned structure within 1e-4 of
 # its extent (the scale about camera 0 is free in monocular BA).
 BA_FP_CAMS, BA_FP_PTS, BA_FP_RTOL = 20, 400, 1e-4
+# The pgo phase: synthetic pose graphs on the card, built as
+# tests/test_pose_graph_sim3.py builds its thousand-node one: a planar loop
+# that passes its start every 200 nodes, an odometry chain integrated from
+# the true relative steps (each step's length scaled by a growing factor:
+# the monocular drift), chain edges measured from that estimate and metric
+# loop edges carrying the true relative pose. PGO_NODES nodes with 3% step
+# noise and a loop (i -> i + 100) every 20 nodes, in SE(3) and in Sim(3): one
+# GN step of the chain + Woodbury solver and of CG (PGO_CG_ITERS trips) held
+# against the dense step (f32 round-off of two LU-pivoted solves: rtol and
+# atol 5e-4, as tests/test_torch_pose_graph.py at 300 nodes); then the
+# 1,000-node scale ramp to 1.5x with loops (i -> i + 200) every 100 nodes
+# through the chain solver, held to that
+# test's gates (ATE below 0.15 of the drifted one, log_s's endpoint within
+# 0.15 of the ramp, correlation above 0.95).
+PGO_NODES, PGO_LOOP_EVERY, PGO_NOISE, PGO_CG_ITERS = 200, 20, 0.03, 400
+PGO_RTOL, PGO_ATOL = 5e-4, 5e-4
+RAMP_NODES, RAMP_ATE_FRAC, RAMP_LS_ATOL, RAMP_CORR = 1000, 0.15, 0.15, 0.95
+# The odometry phase: tests/test_long_sequence.py's 120-frame three-cycle
+# revisit at its configuration: ODO_SIZE^2 frames rendered with seed 3 (the
+# NumPy renderer: the card machine has no libpng) along a triangle wave of
+# period ODO_PERIOD, the frontend's 256 keypoints with dual orientations (512
+# slots) from the batched frontend on the card, a window of 6 with 128
+# landmarks a frame, draws from a generator seeded ODO_DRAW_SEED. Three runs,
+# gated as that test gates them: windowed-only; loop closure with the default
+# 64-block FIFO archive (>= 3 loops, none dropped, ATE under 5% of the span
+# and at least 1.8x better than windowed-only, the window map's capacities
+# O(window)); loop closure with an 8-block archive under the coverage policy
+# (>= 6 loops, none dropped, ATE under 1.2% of the span). The steady step runs
+# as CUDA graphs (the default on the card); on a prefix with loop closure it
+# is held against the eager step with the same generator: both draw the same
+# numbers and launch the same kernels, so they agree to f32 round-off (1e-4
+# in rotations and in translations; a graph changes no arithmetic, so a
+# larger gap is a capture fault). The prefix is 28 frames, not 20: the first
+# revisit is accepted at frame 24 or so, and the prefix must hold one.
+ODO_FRAMES, ODO_PERIOD, ODO_SIZE, ODO_SEED, ODO_KEYPOINTS = 120, 40, 256, 3, 256
+ODO_WINDOW, ODO_PTS_PER_FRAME, ODO_DRAW_SEED, ODO_BATCH = 6, 128, 1, 8
+ODO_ATE_FRAC, ODO_GAIN, ODO_MIN_LOOPS = 0.05, 1.8, 3
+ODO_COV_BLOCKS, ODO_COV_MIN_LOOPS, ODO_COV_ATE_FRAC = 8, 6, 0.012
+ODO_PREFIX, ODO_GRAPH_ATOL = 28, 1e-4
 THR = 0.04 / 3          # detect.CONTRAST_THRESHOLD / S
 EDGE_RATIO = 10.0
 
@@ -873,7 +917,6 @@ def sfm_phase(torch, dev):
     }
     times = {name: call_times(torch, fn, iters=3, warmup=1, profiled=2)
              for name, fn in calls.items()}
-    aggregation = aggregation_times(torch, m, plan, K, n)
     top = top_kernels(torch, calls["mid BA (5 steps)"])
     pnp_ms = times["ransac_pnp"][0]
     share = pnp_calls * pnp_ms / 1e3 / run_s
@@ -886,10 +929,7 @@ def sfm_phase(torch, dev):
           f"ms/frame; first run {walls[0]:.3f} s); "
           f"CG iterations a GN step (of 25): final map {iters['final map']}, moved "
           f"{iters['moved']}; {pnp_calls} ransac_pnp calls x {pnp_ms:.3f} ms = "
-          f"{100 * share:.1f}% of the run; " + fmt_times(times) + "; per-camera / per-node "
-          f"sums, device ms one-hot product vs index_add_: " + "; ".join(
-              f"{k} {a:.4f} vs {b:.4f} (max rel diff {e:.1e})"
-              for k, (a, b, e) in aggregation.items())
+          f"{100 * share:.1f}% of the run; " + fmt_times(times)
           + "; mid BA device time by kernel (ms/call, launches/call): " + "; ".join(
               f"{name[:60]} {ms:.3f} ({cnt})" for name, ms, cnt in top))
     return m
@@ -910,39 +950,297 @@ def top_kernels(torch, fn, n_top=6):
     return sorted(rows, key=lambda r: -r[1])[:n_top]
 
 
-def aggregation_times(torch, m, plan, K, n):
-    """Device ms of the two ways to sum rows into groups, on this run's
-    shapes: the one-hot product the port keeps where the JAX package has it,
-    against ``index_add_`` (atomic on the card). The CG assembly's camera-side
-    sums (the 42 J^T J / J^T r columns of every grouped slot into C cameras)
-    and the pose graph's per-node sums (36 entries of every edge into N
-    nodes). Returns {name: (one-hot ms, index_add_ ms, max relative diff)}."""
-    from sift_parallel_optimization_tpu_torch.models import ba
-    from sift_parallel_optimization_tpu_torch.models.loop_closure import build_pose_graph_edges
+def pose_graph_scene(n, loop_span, loop_every, per_edge_scale=1.0, noise=0.0, seed=3):
+    """(truth, drifted start, Sim3Edges fields) as numpy arrays, with metric
+    loops (i -> i + loop_span) every ``loop_every`` nodes: see PGO_NODES."""
+    import torch
 
-    C = m.rvecs.shape[0]
-    oh = plan.cam_oh.reshape(-1, C)
-    cols = torch.rand(oh.shape[0], 42, device=oh.device) * plan.valid.reshape(-1, 1)
-    cam = torch.where(plan.valid.reshape(-1), oh.argmax(dim=1), C)
-    # The run's graph: the chain and up to 8 loop edges.
-    edges = build_pose_graph_edges(m, n, [], [], capacity=n + 7)
-    e_vals = torch.rand(edges.i.shape[0], 36, device=oh.device)
-    e_oh = ba._one_hot(edges.i, n)
-    cases = {
-        f"CG camera sums ({oh.shape[0]} slots x 42 -> {C})": (
-            lambda: oh.T @ cols,
-            lambda: torch.zeros(C + 1, 42, device=oh.device).index_add_(0, cam, cols)[:C]),
-        f"PGO node sums ({edges.i.shape[0]} edges x 36 -> {n})": (
-            lambda: e_oh.T @ e_vals,
-            lambda: torch.zeros(n, 36, device=oh.device).index_add_(0, edges.i.long(), e_vals)),
+    from sift_parallel_optimization_tpu_torch.models.geometry import rotation_log
+    from sift_parallel_optimization_tpu_torch.models.pose_graph import relative_pose
+
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 2 * np.pi * n / 200, n)
+    gt_t = np.stack([np.cos(th), np.sin(th), 0.05 * rng.normal(size=n)], 1).astype(np.float32)
+    gt_r = (0.01 * rng.normal(size=(n, 3))).astype(np.float32)
+    rel = lambda r0, t0, r1, t1: [a.numpy() for a in relative_pose(*map(
+        torch.from_numpy, (r0, t0, r1, t1)))]
+    rr, rt = rel(gt_r[:-1], gt_t[:-1], gt_r[1:], gt_t[1:])
+    rt = rt * (1.0 + noise * rng.normal(size=(n - 1, 1))).astype(np.float32)
+    est_r, est_t, s = [gt_r[0].astype(np.float64)], [gt_t[0].astype(np.float64)], 1.0
+    for k in range(n - 1):
+        s *= per_edge_scale
+        R_rel = rodrigues_np(rr[k])
+        est_t.append(R_rel @ est_t[-1] + s * rt[k])
+        est_r.append(R_rel @ rodrigues_np(est_r[-1]))
+        est_r[-1] = rotation_log(torch.from_numpy(est_r[-1].astype(np.float32))).numpy()
+    est_r, est_t = np.stack(est_r).astype(np.float32), np.stack(est_t).astype(np.float32)
+    cr, ct = rel(est_r[:-1], est_t[:-1], est_r[1:], est_t[1:])
+    li = np.asarray(list(range(0, n - loop_span, loop_every)) + [n - loop_span - 1], np.int32)
+    lr, lt = rel(gt_r[li], gt_t[li], gt_r[li + loop_span], gt_t[li + loop_span])
+    L = len(li)
+    edges = dict(i=np.concatenate([np.arange(n - 1), li]).astype(np.int32),
+                 j=np.concatenate([np.arange(1, n), li + loop_span]).astype(np.int32),
+                 rel_rvec=np.concatenate([cr, lr]), rel_tvec=np.concatenate([ct, lt]),
+                 rel_log_s=np.zeros(n - 1 + L, np.float32),
+                 weight=np.concatenate([np.ones(n - 1), np.full(L, 8.0)]).astype(np.float32),
+                 metric=np.concatenate([np.zeros(n - 1), np.ones(L)]).astype(np.float32))
+    return (gt_r, gt_t), (est_r, est_t), edges
+
+
+def pgo_phase(torch, dev):
+    """The SE(3) and Sim(3) solvers on the card: CG and chain against dense
+    at PGO_NODES nodes, the 1,000-node Sim(3) scale ramp through the chain
+    solver; ms per GN step, device ms and launches (see PGO_NODES)."""
+    from sift_parallel_optimization_tpu_torch.models import pose_graph as pg
+    from sift_parallel_optimization_tpu_torch.models import pose_graph_sim3 as ps
+    from sift_parallel_optimization_tpu_torch.utils.trajectory import ate_rmse, camera_centers
+
+    (_gt_r, _gt_t), (er, et), edges = pose_graph_scene(PGO_NODES, PGO_NODES // 2,
+                                                       PGO_LOOP_EVERY, noise=PGO_NOISE)
+    cap = int((edges["j"] != edges["i"] + 1).sum())
+    s_edges = ps.sim3_edges_from_numpy(edges, dev)
+    s_poses = ps.se3_to_sim3_poses(torch.from_numpy(er).to(dev), torch.from_numpy(et).to(dev))
+    graphs = {
+        "SE(3)": (pg.pgo_step, pg.Poses(s_poses.rvecs, s_poses.tvecs),
+                  pg.PoseGraphEdges(*s_edges[:4], s_edges.weight)),
+        "Sim(3)": (ps.sim3_step, s_poses, s_edges),
     }
-    out = {}
-    for name, (one_hot, atomic) in cases.items():
-        a, b = one_hot(), atomic()
-        err = float(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)))
-        out[name] = (device_profile(torch, one_hot, iters=20)[1],
-                     device_profile(torch, atomic, iters=20)[1], err)
-    return out
+    kw = dict(damping=1e-4, cg_iters=PGO_CG_ITERS, cg_tol=1e-12, offchain_cap=cap)
+    lines, worst = [], {}
+    for name, (step, poses, e) in graphs.items():
+        dense = step(poses, e, solver="dense", **kw)
+        rms0 = float((ps.sim3_rms if name == "Sim(3)" else pg.pgo_rms)(poses, e))
+        for solver in ("chain", "cg"):
+            got = step(poses, e, solver=solver, **kw)
+            for g, d in zip(got, dense):
+                check(bool(torch.allclose(g, d, rtol=PGO_RTOL, atol=PGO_ATOL)),
+                      f"pgo: {name} {solver} step vs dense: {max_err([g], [d]):.3e}")
+            worst[f"{name} {solver}"] = max_err(got, dense)
+        times = {solver: call_times(torch, lambda: step(poses, e, solver=solver, **kw), iters=2,
+                                    warmup=1, profiled=1)
+                 for solver in ("dense", "chain", "cg")}
+        lines.append(f"{name} {PGO_NODES} nodes, {cap} loop edges, start rms {rms0:.4f}: "
+                     f"one GN step vs dense, max abs diff chain {worst[name + ' chain']:.2e}, CG "
+                     f"({PGO_CG_ITERS} trips) {worst[name + ' cg']:.2e} (rtol/atol "
+                     f"{PGO_RTOL}); a GN step: " + fmt_times(times))
+
+    # The thousand-node scale ramp through "auto" -> chain.
+    n = RAMP_NODES
+    (gt_r, gt_t), (er, et), edges = pose_graph_scene(n, 200, 100, np.exp(np.log(1.5) / (n - 1)))
+    cap = int((edges["j"] != edges["i"] + 1).sum())
+    check(ps.resolve_sim3_solver(n, offchain_cap=cap) == "chain", "pgo: ramp not on the chain")
+    e = ps.sim3_edges_from_numpy(edges, dev)
+    p0 = ps.se3_to_sim3_poses(torch.from_numpy(er).to(dev), torch.from_numpy(et).to(dev))
+    damping = ps.chain_damping(n, 1e-4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ps.optimize_sim3_graph(p0, e, n_iters=12, damping=damping, offchain_cap=cap)
+    torch.cuda.synchronize()
+    ramp_s = time.perf_counter() - t0
+    rv, tv = ps.sim3_to_se3_poses(out)
+    gt = camera_centers(torch.from_numpy(gt_r), torch.from_numpy(gt_t)).to(dev)
+    ate = lambda r, t: float(ate_rmse(camera_centers(r, t), gt, with_scale=False))
+    ate0, ate1 = ate(p0.rvecs, p0.tvecs), ate(rv, tv)
+    ls = out.log_s.cpu().numpy()
+    ramp = np.log(1.5) * np.arange(n) / (n - 1)
+    corr = float(np.corrcoef(ls, ramp)[0, 1])
+    check(ate1 < RAMP_ATE_FRAC * ate0, f"pgo: ramp ATE {ate1:.4f} vs drifted {ate0:.4f}")
+    check(abs(ls[-1] - ramp[-1]) < RAMP_LS_ATOL, f"pgo: ramp log_s[-1] {ls[-1]:.4f}")
+    check(corr > RAMP_CORR, f"pgo: ramp log_s correlation {corr:.4f}")
+    step_t = call_times(torch, lambda: ps.sim3_step(p0, e, damping, solver="chain",
+                                                    offchain_cap=cap),
+                        iters=1, warmup=0, profiled=1)
+    lines.append(f"Sim(3) scale ramp {n} nodes, {cap} metric loops, chain solver: 12 GN steps "
+                 f"{ramp_s:.3f} s; ATE {ate0:.4f} -> {ate1:.4f} ({ate1 / ate0:.3f}x, gate "
+                 f"{RAMP_ATE_FRAC}), log_s[-1] {ls[-1]:.4f} vs {ramp[-1]:.4f}, correlation "
+                 f"{corr:.5f}; a GN step " + fmt_times({"chain": step_t}))
+    phase("pgo", "; ".join(lines))
+
+
+def odometry_frames(torch, dev):
+    """tests/test_long_sequence.py's rendered triangle-wave sequence:
+    (frames (n, size, size) on ``dev``, K, true rvecs, true tvecs)."""
+    from sift_parallel_optimization_tpu_torch.utils import native
+
+    half = ODO_PERIOD // 2
+    ks = [(i % ODO_PERIOD) if (i % ODO_PERIOD) <= half else ODO_PERIOD - (i % ODO_PERIOD)
+          for i in range(ODO_FRAMES)]
+    gt_r = np.stack([[0.0, 0.025 * k, 0.002 * k] for k in ks]).astype(np.float32)
+    gt_t = np.stack([[-0.25 * k, 0.012 * k, 0.035 * k] for k in ks]).astype(np.float32)
+    f = float(ODO_SIZE)
+    imgs = np.stack([native.render_frame(ODO_SIZE, gt_r[i], gt_t[i], f, seed=ODO_SEED)
+                     for i in range(ODO_FRAMES)])
+    K = torch.tensor([[f, 0, ODO_SIZE / 2], [0, f, ODO_SIZE / 2], [0, 0, 1.0]], device=dev)
+    return torch.from_numpy(imgs).to(dev), K, gt_r, gt_t
+
+
+def odometry_features(torch, dev, imgs):
+    """The sequence through the batched frontend, ODO_BATCH frames a call:
+    a list of per-frame Features."""
+    from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+
+    fe = SiftFrontend(sift_config(ODO_SIZE), max_keypoints=ODO_KEYPOINTS, dual_orientation=True,
+                      device=dev)
+    out = [fe(imgs[b:b + ODO_BATCH]) for b in range(0, imgs.shape[0], ODO_BATCH)]
+    return [frame_of(o, i) for o in out for i in range(o.descriptors.shape[0])]
+
+
+class StepClock:
+    """Times every call of ``SteadyStepRunner.run`` (the steady step of
+    ``run_odometry``) between CUDA events, and keeps each run's runner: a
+    wrapper around the method while the phase runs. ``kind`` of a call:
+    "eager" (graph=False), "warm" (a variant's first frame, eager on a side
+    stream), "capture" (its second, captured then replayed) or "replay"."""
+
+    def __init__(self, torch, odo):
+        self.torch, self.cls, self.calls, self.runners = torch, odo.SteadyStepRunner, [], []
+        self.orig = self.cls.run
+        clock = self
+
+        def run(runner, i, do_ba, do_loop, **kw):
+            if not clock.runners or clock.runners[-1] is not runner:
+                clock.runners.append(runner)
+            key = (do_ba, do_loop)
+            kind = ("eager" if not runner.graph else "replay" if key in runner.graphs
+                    else "capture" if key in runner.warm else "warm")
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            clock.orig(runner, i, do_ba, do_loop, **kw)
+            end.record()
+            clock.calls.append((runner, kind, do_ba, start, end, time.perf_counter() - t0))
+
+        self.cls.run = run
+
+    def close(self):
+        self.cls.run = self.orig
+
+    def summary(self, runner):
+        """{kind: (median ms between events, median host ms, calls)} of one run."""
+        self.torch.cuda.synchronize()
+        out = {}
+        for kind in ("eager", "warm", "capture", "replay"):
+            rows = [(s.elapsed_time(e), h * 1e3) for r, k, _b, s, e, h in self.calls
+                    if r is runner and k == kind]
+            if rows:
+                out[kind] = (float(np.median([a for a, _ in rows])),
+                             float(np.median([b for _, b in rows])), len(rows))
+        return out
+
+
+def odometry_phase(torch, dev, counters):
+    """tests/test_long_sequence.py's 120-frame three-cycle revisit through
+    the batched frontend and run_odometry on the card, its steady step as
+    CUDA graphs (see ODO_FRAMES). Returns the kernels' launches during the
+    frontend's run (the path's own count)."""
+    from sift_parallel_optimization_tpu_torch.models import odometry as odo
+    from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
+    from sift_parallel_optimization_tpu_torch.utils.trajectory import ate_rmse, camera_centers
+
+    imgs, K, gt_r, gt_t = odometry_frames(torch, dev)
+    feats, launches = counted(torch, counters, lambda: odometry_features(torch, dev, imgs))
+    check(len(feats) == ODO_FRAMES and feats[0].descriptors.shape == (2 * ODO_KEYPOINTS, 128),
+          "odometry: feature shapes")
+    n_kp = [int(f.keypoints.count()) for f in feats]
+    gt = camera_centers(torch.from_numpy(gt_r), torch.from_numpy(gt_t)).to(dev)
+    span = float(np.linalg.norm(np.ptp(gt.cpu().numpy(), axis=0)))
+    W, B = ODO_WINDOW, ODO_PTS_PER_FRAME
+    configs = {
+        "windowed": dict(),
+        "fifo": dict(loop_closure=True),
+        "coverage": dict(loop_closure=True, archive_size=ODO_COV_BLOCKS * B,
+                         archive_policy="coverage"),
+    }
+    clock = StepClock(torch, odo)
+    res = {}
+    try:
+        for name, kw in configs.items():
+            gen = torch.Generator(device=dev).manual_seed(ODO_DRAW_SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            traj, m, info = odo.run_odometry(gen, feats, K, window=W, pts_per_frame=B,
+                                             return_info=True, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(bool(torch.isfinite(traj.rvecs).all() & torch.isfinite(traj.tvecs).all()),
+                  f"odometry {name}: non-finite poses")
+            check(traj.rvecs.shape == (ODO_FRAMES, 3), f"odometry {name}: trajectory shape")
+            check(m.rvecs.shape[0] == W and m.points.shape[0] == W * B
+                  and m.obs.uv.shape[0] == 3 * W * B, f"odometry {name}: capacities not O(window)")
+            ate = float(ate_rmse(camera_centers(traj.rvecs, traj.tvecs), gt))
+            res[name] = (ate, info, wall, clock.runners[-1])
+        # The same generator through the eager and the captured step, on a
+        # prefix with loop closure.
+        prefix = {}
+        for graph in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(ODO_DRAW_SEED)
+            prefix[graph] = odo.run_odometry(gen, feats[:ODO_PREFIX], K, window=W,
+                                             pts_per_frame=B, loop_closure=True, graph=graph,
+                                             return_info=True)
+            prefix[graph] += (clock.runners[-1],)
+        eager_runner = prefix[False][3]
+        # Device ms and launches of one eager steady step of each variant (on
+        # the prefix run's final carry; the shapes are the run's).
+        step_prof = {}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for do_ba in (False, True):
+            ops, dms, _prof = profile_device(
+                lambda: clock.orig(eager_runner, ODO_PREFIX - 1, do_ba, True, generator=gen),
+                warmup=0, iters=1)
+            step_prof[do_ba] = (ops, dms)
+    finally:
+        clock.close()
+
+    (w_ate, w_info, w_wall, _r), (f_ate, f_info, f_wall, f_runner), (c_ate, c_info, c_wall, _c) = (
+        res["windowed"], res["fifo"], res["coverage"])
+    check(len(f_info["loop_frames"]) >= ODO_MIN_LOOPS,
+          f"odometry fifo: {len(f_info['loop_frames'])} loops accepted")
+    check(f_info["loops_dropped"] == 0 and c_info["loops_dropped"] == 0, "odometry: loops dropped")
+    check(f_ate < ODO_ATE_FRAC * span, f"odometry fifo: ATE {f_ate:.4f} over a span of {span:.3f}")
+    check(f_ate * ODO_GAIN < w_ate, f"odometry fifo: ATE {f_ate:.4f} vs windowed {w_ate:.4f}")
+    check(len(c_info["loop_frames"]) >= ODO_COV_MIN_LOOPS,
+          f"odometry coverage: {len(c_info['loop_frames'])} loops accepted")
+    check(c_ate < ODO_COV_ATE_FRAC * span,
+          f"odometry coverage: ATE {c_ate:.4f} over a span of {span:.3f}")
+    check(f_info["graph_replays"] > 0 and f_runner.graph and len(f_runner.graphs) >= 2,
+          "odometry: the steady step did not replay captured graphs")
+    (e_traj, _em, e_info, _er), (g_traj, _gm, g_info, g_runner) = prefix[False], prefix[True]
+    d_r = float((g_traj.rvecs - e_traj.rvecs).abs().max())
+    d_t = float((g_traj.tvecs - e_traj.tvecs).abs().max())
+    check(d_r <= ODO_GRAPH_ATOL and d_t <= ODO_GRAPH_ATOL and g_info["graph_replays"] > 0
+          and g_info["loop_frames"] == e_info["loop_frames"] and e_info["loop_frames"],
+          f"odometry: graph vs eager step on {ODO_PREFIX} frames: rotations {d_r:.3e}, "
+          f"translations {d_t:.3e}, loops {g_info['loop_frames']} vs {e_info['loop_frames']}")
+    full = clock.summary(f_runner)
+    eager, graph = clock.summary(eager_runner), clock.summary(g_runner)
+    n_steady = ODO_FRAMES - W
+    ba_share = sum(1 for i in range(W, ODO_FRAMES) if i % 2 == 0 or i == ODO_FRAMES - 1) / n_steady
+    dev_ms = ba_share * step_prof[True][1] + (1 - ba_share) * step_prof[False][1]
+    rep_ms = full["replay"][0]
+    eager_ms = eager["eager"][0]
+    fmt = lambda d: ", ".join(f"{k} {a:.3f} ms (host {h:.3f} ms, n={c})"
+                              for k, (a, h, c) in d.items())
+    phase("odometry", f"{ODO_FRAMES} frames {ODO_SIZE}^2 (three-cycle revisit, period "
+          f"{ODO_PERIOD}), batched frontend (B={ODO_BATCH}, {ODO_KEYPOINTS} keypoints, dual "
+          f"orientations: {2 * ODO_KEYPOINTS} slots; {min(n_kp)}..{max(n_kp)} valid a frame), "
+          f"W={W}, {B} landmarks/frame, span {span:.3f}: windowed-only ATE {w_ate:.5f} "
+          f"({100 * w_ate / span:.3f}%, {w_wall:.3f} s); FIFO 64 blocks ATE {f_ate:.5f} "
+          f"({100 * f_ate / span:.3f}%, gate {100 * ODO_ATE_FRAC:.0f}%; "
+          f"{w_ate / f_ate:.2f}x better, gate {ODO_GAIN}x), loops {f_info['loop_frames']} "
+          f"(inliers {f_info['loop_inliers']}), {f_wall:.3f} s; coverage {ODO_COV_BLOCKS} "
+          f"blocks ATE {c_ate:.5f} ({100 * c_ate / span:.3f}%, gate "
+          f"{100 * ODO_COV_ATE_FRAC:.1f}%), {len(c_info['loop_frames'])} loops "
+          f"{c_info['loop_frames']}, {c_wall:.3f} s; dropped 0; graph vs eager step on "
+          f"{ODO_PREFIX} frames: rotations {d_r:.2e}, translations {d_t:.2e} (atol "
+          f"{ODO_GRAPH_ATOL}), loops {g_info['loop_frames']}; steady step a frame "
+          f"(CUDA events): FIFO run {fmt(full)}; prefix graph {fmt(graph)}; prefix eager "
+          f"{fmt(eager)}; device per eager step: without BA {step_prof[False][1]:.3f} ms in "
+          f"{step_prof[False][0]:.0f} launches, with BA {step_prof[True][1]:.3f} ms in "
+          f"{step_prof[True][0]:.0f} launches ({100 * ba_share:.0f}% of steady frames run the "
+          f"BA: {dev_ms:.3f} device ms a frame); a replay is one graph launch; busy share "
+          f"graph {100 * dev_ms / rep_ms:.1f}%, eager {100 * dev_ms / eager_ms:.1f}%; "
+          f"{len(f_runner.graphs)} graphs captured")
+    return launches
 
 
 def sfm_cpu_phase(torch, dev):
@@ -1356,7 +1654,13 @@ def main() -> int:
     pair_phase(torch, dev, feats["batched 512"][1])
     twoview_phase(torch, dev)
 
-    # 7d. Incremental SfM with loop closure at configuration 4, and the same
+    # 7d. The tracking step: windowed odometry with loop closure on rendered
+    # frames through the batched frontend (its frontend's launches counted as
+    # the path's own), and the pose-graph solvers it ends with.
+    path_launches["odometry"] = odometry_phase(torch, dev, counters)
+    pgo_phase(torch, dev)
+
+    # 7e. Incremental SfM with loop closure at configuration 4, and the same
     # driver on the card against the CPU.
     sfm_phase(torch, dev)
     sfm_cpu_phase(torch, dev)

@@ -3,6 +3,7 @@
   python -m sift_parallel_optimization_tpu_torch.cli pyramid --size 512 --S 2 --device cuda
   python -m sift_parallel_optimization_tpu_torch.cli features --size 512 --device cuda
   python -m sift_parallel_optimization_tpu_torch.cli sfm --frames 6 --size 256 --device cuda
+  python -m sift_parallel_optimization_tpu_torch.cli sfm --frames 40 --window 6 --loop-closure
 
 Defaults follow the JAX package's CLI (size 512, S=2, K=512; sfm: 6 frames
 of 256^2). With ``--device cuda`` and no GPU present the command fails; it
@@ -131,12 +132,20 @@ def _gt_associations(args, frame_ts):
 
 
 def _cmd_sfm(args) -> int:
-    """Incremental SfM (``models/sfm.run_sfm``) on rendered frames, or on a
-    directory of frames, with the frontend's dual orientations and 256
-    keypoints a frame; prints the map's counts, the reprojection RMS and the
-    ATE after Sim(3) alignment, as the JAX package's ``cli sfm`` does."""
+    """Incremental SfM (``models/sfm.run_sfm``), or with ``--window`` the
+    windowed odometry (``models/odometry.run_odometry``), on rendered frames
+    or on a directory of frames, with the frontend's dual orientations and
+    256 keypoints a frame; prints the map's counts, the reprojection RMS and
+    the ATE after Sim(3) alignment, as the JAX package's ``cli sfm`` does."""
+    if args.archive_policy != "fifo" and not (args.window and args.loop_closure):
+        # The policy only exists inside the loop-closure archive: refuse it
+        # rather than run another configuration than the one asked for.
+        print("--archive-policy requires --window and --loop-closure "
+              "(the archive ring only exists in loop-closed odometry)")
+        return 2
     from sift_parallel_optimization_tpu_torch.models.ba import rms_error
     from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+    from sift_parallel_optimization_tpu_torch.models.odometry import run_odometry
     from sift_parallel_optimization_tpu_torch.models.sfm import run_sfm
     from sift_parallel_optimization_tpu_torch.utils import native
     from sift_parallel_optimization_tpu_torch.utils.trajectory import ate_rmse, camera_centers
@@ -188,15 +197,25 @@ def _cmd_sfm(args) -> int:
     fe = SiftFrontend(sift_config(size), gh, gw, max_keypoints=256, dual_orientation=True,
                       device=dev)
     feats = [fe(torch.from_numpy(np.ascontiguousarray(im)).to(dev)) for im in imgs]
-    m = run_sfm(gen, feats, K, pair_selection=args.pair_selection)
-    print(f"cameras: {int(m.cam_valid.sum())}/{len(imgs)}  "
-          f"landmarks: {int(m.pt_valid.sum())}  "
-          f"observations: {int(m.obs.valid.sum())}")
+    if args.window:
+        traj, m = run_odometry(gen, feats, K, window=args.window, loop_closure=args.loop_closure,
+                               archive_policy=args.archive_policy,
+                               marginalize=not args.no_marginalize)
+        est_r, est_t = traj.rvecs, traj.tvecs
+        print(f"window odometry (W={args.window}"
+              f"{', loop closure' if args.loop_closure else ''}): {len(imgs)} frames, "
+              f"{int(m.pt_valid.sum())} live landmarks")
+    else:
+        m = run_sfm(gen, feats, K, pair_selection=args.pair_selection)
+        est_r, est_t = m.rvecs, m.tvecs
+        print(f"cameras: {int(m.cam_valid.sum())}/{len(imgs)}  "
+              f"landmarks: {int(m.pt_valid.sum())}  "
+              f"observations: {int(m.obs.valid.sum())}")
     print(f"reprojection RMS: {float(rms_error(m.ba_state(), m.obs, K)):.3f} px")
     if args.image_dir:
-        print(f"trajectory extent: {np.ptp(m.tvecs.cpu().numpy(), axis=0).round(3).tolist()}")
-    _save_traj(args, m.rvecs, m.tvecs, frame_ts)
-    est = camera_centers(m.rvecs, m.tvecs)
+        print(f"trajectory extent: {np.ptp(est_t.cpu().numpy(), axis=0).round(3).tolist()}")
+    _save_traj(args, est_r, est_t, frame_ts)
+    est = camera_centers(est_r, est_t)
     if args.groundtruth:
         ia, gt_c = _gt_associations(args, frame_ts)
         if len(ia) < 3:
@@ -248,6 +267,18 @@ def main(argv=None) -> int:
                    help="registration order: 'sequential' (frame i vs i-1) or "
                         "'covisibility' (pairwise match-count table -> maximum-"
                         "covisibility spanning-tree order)")
+    s.add_argument("--window", type=int, default=0,
+                   help="sliding-window odometry with this window size (0 = full incremental "
+                        "SfM; O(window) memory for long sequences)")
+    s.add_argument("--loop-closure", action="store_true",
+                   help="with --window: archive evicted landmarks and correct revisits by "
+                        "pose-graph optimization")
+    s.add_argument("--archive-policy", choices=("fifo", "coverage"), default="fifo",
+                   help="with --loop-closure: ring-overwrite rule, 'fifo' (by age) or "
+                        "'coverage' (overwrite the spatially most redundant block)")
+    s.add_argument("--no-marginalize", action="store_true",
+                   help="with --window: no fixed-landmark anchor factors for evicted blocks "
+                        "(on by default; the ablation knob for drift studies)")
     s.add_argument("--save-traj", default=None, help="write the estimated trajectory here")
     s.add_argument("--traj-format", choices=("tum", "kitti"), default="tum")
     s.add_argument("--max-dt", type=float, default=0.02,

@@ -184,7 +184,9 @@ def _mark(size: int, idx: torch.Tensor, ok: torch.Tensor, base=None) -> torch.Te
     out = torch.zeros(size + 1, dtype=torch.bool, device=idx.device)
     if base is not None:
         out[:size] = base
-    out[torch.where(ok, idx, size)] = True
+    # index_fill_, not ``out[rows] = True``: that copies a host scalar to the
+    # card, which a CUDA graph capture refuses.
+    out.index_fill_(0, torch.where(ok, idx, size), True)
     return out[:size]
 
 
@@ -199,9 +201,14 @@ def _set_rows(arr: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor, vals) -> t
 
 def _set(arr: torch.Tensor, index, val) -> torch.Tensor:
     """A copy of ``arr`` with ``arr[index]`` (a Python int or slice: nothing
-    is copied from the host) set to ``val``."""
+    is copied from the host) set to ``val``. A Python scalar is written by a
+    fill: ``out[i] = True`` would copy a host scalar into the 0-d slot, which
+    waits on the card and a CUDA graph capture refuses."""
     out = arr.clone()
-    out[index] = val
+    if isinstance(val, torch.Tensor):
+        out[index] = val
+    else:
+        out[index].fill_(val)
     return out
 
 
@@ -316,10 +323,13 @@ def ransac_pnp(
 
     inl = score(thetas[:, :3], thetas[:, 3:])                             # (N, K)
     counts = torch.where(ok, inl.sum(-1), -1)
-    best = torch.argmax(counts)
-    cam = Camera(rvec=thetas[best, :3], tvec=thetas[best, 3:])
+    # A (1,) index, not a 0-d one: indexing with a 0-d tensor reads it on the
+    # host, which a CUDA graph capture refuses.
+    best = torch.argmax(counts).view(1)
+    theta = thetas[best][0]
+    cam = Camera(rvec=theta[:3], tvec=theta[3:])
     cam = refine_pose(
-        cam, pts3d, pts2d, K, inl[best].to(torch.float32), n_iters=5, solver="lu",
+        cam, pts3d, pts2d, K, inl[best][0].to(torch.float32), n_iters=5, solver="lu",
     )
     inliers = score(cam.rvec, cam.tvec)
     return cam, inliers, inliers.sum()

@@ -360,3 +360,67 @@ def test_solvers_run_with_tf32_off_and_restore_it(dev, monkeypatch):
     finally:
         torch.set_float32_matmul_precision("highest")
     assert len(seen) == 4 and all(s == ("highest", False) for s in seen)
+
+
+@pytest.mark.parametrize("solver", ["chain", "cg"])
+@pytest.mark.parametrize("graph", ["se3", "sim3"])
+def test_scalable_pose_graph_solvers_on_the_card_match_cpu(dev, solver, graph):
+    """The chain + Woodbury and CG solvers (SE(3) and Sim(3)) on CUDA and
+    CPU tensors: other summation orders, so 10 GN steps within 1e-4."""
+    from sift_parallel_optimization_tpu_torch.models import pose_graph as pgo
+    from sift_parallel_optimization_tpu_torch.models import pose_graph_sim3 as ps
+
+    rng = np.random.default_rng(2)
+    n = 24
+    rv = (rng.normal(size=(n, 3)) * 0.1).astype(np.float32)
+    tv = np.cumsum(rng.normal(size=(n, 3)), axis=0).astype(np.float32)
+    i = np.array(list(range(n - 1)) + [0, 5], np.int32)
+    j = np.array(list(range(1, n)) + [n - 1, 15], np.int32)
+    rel = pgo.relative_pose(*[torch.from_numpy(a) for a in (rv[i], tv[i], rv[j], tv[j])])
+    noise = lambda a: a + torch.from_numpy(rng.normal(size=a.shape).astype(np.float32)) * 0.02
+    w = torch.tensor([1.0] * (n - 1) + [4.0, 4.0])
+    kw = dict(n_iters=10, damping=1e-4, solver=solver, cg_iters=150, cg_tol=1e-12, offchain_cap=2)
+    if graph == "se3":
+        edges = pgo.PoseGraphEdges(torch.from_numpy(i), torch.from_numpy(j), noise(rel[0]),
+                                   noise(rel[1]), w)
+        poses = pgo.Poses(torch.from_numpy(rv) + 0.02, torch.from_numpy(tv) + 0.1)
+        run = pgo.optimize_pose_graph
+    else:
+        metric = torch.tensor([0.0] * (n - 1) + [1.0, 1.0])
+        edges = ps.Sim3Edges(torch.from_numpy(i), torch.from_numpy(j), noise(rel[0]),
+                             noise(rel[1]), torch.zeros(n + 1), w, metric)
+        poses = ps.se3_to_sim3_poses(torch.from_numpy(rv) + 0.02, torch.from_numpy(tv) + 0.1)
+        run = ps.optimize_sim3_graph
+    cpu = run(poses, edges, **kw)
+    gpu = run(_to(poses, dev), _to(edges, dev), **kw)
+    for c, g in zip(cpu, gpu):
+        assert g.is_cuda and bool(torch.isfinite(g).all())
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * max(1.0, float(c.abs().max()))
+
+
+def test_odometry_graph_step_equals_the_eager_step_on_the_card(dev):
+    """run_odometry with loop closure on a synthetic out-and-back scene:
+    the steady step captured as CUDA graphs and the eager step draw the same
+    numbers from the same generator and give the same trajectory (1e-4);
+    the graph run replayed captured steps."""
+    from sift_parallel_optimization_tpu_torch.models import frontend, odometry
+    from sift_parallel_optimization_tpu_torch.utils import synthetic
+
+    k_np = np.array([[400.0, 0, 200], [0, 400.0, 150], [0, 0, 1]], np.float32)
+    rng = np.random.default_rng(0)
+    pts, descs = synthetic.landmarks(rng, 300, lo=(-5, -3, 6), hi=(12, 3, 12))
+    rv, tv = synthetic.out_and_back(14, step=(-1.0, 0.03, 0.07))
+    feats = [frontend.features_from_numpy(
+        synthetic.view_features(rng, pts, descs, rv[f], tv[f], k_np, 400, 300, 320), dev)
+        for f in range(14)]
+    runs = {}
+    for graph in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        runs[graph] = odometry.run_odometry(gen, feats, torch.from_numpy(k_np).to(dev), window=4,
+                                            pts_per_frame=64, loop_closure=True, graph=graph,
+                                            return_info=True)
+    (e_traj, _em, e_info), (g_traj, _gm, g_info) = runs[False], runs[True]
+    assert g_info["graph_replays"] > 0 and e_info["graph_replays"] == 0
+    assert g_info["loop_frames"] == e_info["loop_frames"] and e_info["loop_frames"]
+    assert float((g_traj.rvecs - e_traj.rvecs).abs().max()) <= 1e-4
+    assert float((g_traj.tvecs - e_traj.tvecs).abs().max()) <= 1e-4
