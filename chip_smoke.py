@@ -17,9 +17,11 @@ closure on 50 keyframes, 128 landmarks a frame and 512 feature slots, on the
 implicit-Schur CG solver; the SE(3) and Sim(3) pose-graph solvers on
 synthetic graphs up to 1,000 nodes; and the tracking step: windowed odometry
 over 120 rendered frames through the batched frontend, with archive loop
-closure, its steady step as CUDA graphs) and checks their outputs against
-the port's per-frame, eager and CPU runs and against the truth of the
-synthetic scenes. Each phase prints one line; then a JSON line of the
+closure, its steady step as CUDA graphs; and online serving: OdometryStream
+over the same features against run_odometry, and cli stream's loop from the
+host library's ring loader through the frontend and OdometryStream at three
+configurations) and checks their outputs against the port's per-frame,
+eager and CPU runs and against the truth of the synthetic scenes. Each phase prints one line; then a JSON line of the
 kernels, the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits nonzero without that line. Imports nothing of
 JAX.
@@ -32,6 +34,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -120,6 +123,7 @@ PATH_KERNELS = {
     "batched 512": ("patch_gather_batched", "score_tables"),
     "batched 1024": ("patch_gather_batched", "score_tables"),
     "odometry": ("patch_gather_batched", "score_tables"),
+    **{f"stream {name}": ("patch_gather", "score_tables") for name in "abc"},
 }
 # The sfm phase: BASELINE.json configuration 4 ("incremental triangulation +
 # bundle adjustment on ~50 keyframes"), as `cli sfm` runs it (256 keypoints
@@ -176,7 +180,9 @@ PGO_RTOL, PGO_ATOL = 5e-4, 5e-4
 RAMP_NODES, RAMP_ATE_FRAC, RAMP_LS_ATOL, RAMP_CORR = 1000, 0.15, 0.15, 0.95
 # The odometry phase: tests/test_long_sequence.py's 120-frame three-cycle
 # revisit at its configuration: ODO_SIZE^2 frames rendered with seed 3 (the
-# NumPy renderer: the card machine has no libpng) along a triangle wave of
+# NumPy renderer, on which the phase's readings were first taken; the host
+# library's renderer agrees within 1e-5, and a run this long is chaotic
+# enough for that to move its loops) along a triangle wave of
 # period ODO_PERIOD, the frontend's 256 keypoints with dual orientations (512
 # slots) from the batched frontend on the card, a window of 6 with 128
 # landmarks a frame, draws from a generator seeded ODO_DRAW_SEED. Three runs,
@@ -196,6 +202,26 @@ ODO_WINDOW, ODO_PTS_PER_FRAME, ODO_DRAW_SEED, ODO_BATCH = 6, 128, 1, 8
 ODO_ATE_FRAC, ODO_GAIN, ODO_MIN_LOOPS = 0.05, 1.8, 3
 ODO_COV_BLOCKS, ODO_COV_MIN_LOOPS, ODO_COV_ATE_FRAC = 8, 6, 0.012
 ODO_PREFIX, ODO_GRAPH_ATOL = 28, 1e-4
+# The stream_equiv phase: OdometryStream over the odometry phase's features
+# at its FIFO configuration and draw seed, with the loop buffer's capacity
+# run_odometry picked there, held to that run: the same loops, and poses
+# within 1e-5 (the JAX package's stream test's atol) before and after the
+# end-of-run correction. The batch run (n = 120, (n - 1) % 2 == 1) BAs its
+# last frame inside frame 119's step, the stream in finish(); the loop
+# proposal does not read the window map, so the two orders agree.
+STREAM_EQUIV_ATOL = 1e-5
+# The stream phase: cli stream's serving loop (cli.serve_stream: the host
+# library's ring loader, 2 threads, 4 buffers -> SiftFrontend -> optional
+# OdometryStream.push), STREAM_FRAMES timed frames after one warm-up frame,
+# K=512, seed 0, in three runs of (name, size, window, loop closure): (a) the
+# CLI's defaults, frontend only; (b) the README's example; (c) 512^2 with
+# OdometryStream's default window. Every frame launches kernels 3 and 2a
+# once. Pushes that replay a captured step run under
+# torch.cuda.set_sync_debug_mode("error"): a host sync there fails the
+# phase; the other pushes and the frontend run under "warn" and their syncs
+# are counted and printed.
+STREAM_FRAMES = 200
+STREAM_RUNS = (("a", 512, 0, False), ("b", 256, 6, True), ("c", 512, 8, True))
 THR = 0.04 / 3          # detect.CONTRAST_THRESHOLD / S
 EDGE_RATIO = 10.0
 
@@ -1068,7 +1094,7 @@ def odometry_frames(torch, dev):
     gt_r = np.stack([[0.0, 0.025 * k, 0.002 * k] for k in ks]).astype(np.float32)
     gt_t = np.stack([[-0.25 * k, 0.012 * k, 0.035 * k] for k in ks]).astype(np.float32)
     f = float(ODO_SIZE)
-    imgs = np.stack([native.render_frame(ODO_SIZE, gt_r[i], gt_t[i], f, seed=ODO_SEED)
+    imgs = np.stack([native._render_frame_numpy(ODO_SIZE, gt_r[i], gt_t[i], f, ODO_SEED)
                      for i in range(ODO_FRAMES)])
     K = torch.tensor([[f, 0, ODO_SIZE / 2], [0, f, ODO_SIZE / 2], [0, 0, 1.0]], device=dev)
     return torch.from_numpy(imgs).to(dev), K, gt_r, gt_t
@@ -1152,6 +1178,7 @@ def odometry_phase(torch, dev, counters):
                          archive_policy="coverage"),
     }
     clock = StepClock(torch, odo)
+    tap = CorrectionTap(odo)
     res = {}
     try:
         for name, kw in configs.items():
@@ -1169,6 +1196,8 @@ def odometry_phase(torch, dev, counters):
                   and m.obs.uv.shape[0] == 3 * W * B, f"odometry {name}: capacities not O(window)")
             ate = float(ate_rmse(camera_centers(traj.rvecs, traj.tvecs), gt))
             res[name] = (ate, info, wall, clock.runners[-1])
+            if name == "fifo":
+                fifo = {"traj": traj, "info": info, "raw": tap.calls[-1][0]}
         # The same generator through the eager and the captured step, on a
         # prefix with loop closure.
         prefix = {}
@@ -1190,6 +1219,7 @@ def odometry_phase(torch, dev, counters):
             step_prof[do_ba] = (ops, dms)
     finally:
         clock.close()
+        tap.close()
 
     (w_ate, w_info, w_wall, _r), (f_ate, f_info, f_wall, f_runner), (c_ate, c_info, c_wall, _c) = (
         res["windowed"], res["fifo"], res["coverage"])
@@ -1240,6 +1270,261 @@ def odometry_phase(torch, dev, counters):
           f"BA: {dev_ms:.3f} device ms a frame); a replay is one graph launch; busy share "
           f"graph {100 * dev_ms / rep_ms:.1f}%, eager {100 * dev_ms / eager_ms:.1f}%; "
           f"{len(f_runner.graphs)} graphs captured")
+    return launches, feats, K, fifo
+
+
+class CorrectionTap:
+    """Keeps (input trajectory, output trajectory) of every call of
+    ``models/odometry.correct_trajectory`` (the end-of-run pose-graph
+    correction) while open."""
+
+    def __init__(self, odo):
+        self.odo, self.orig, self.calls = odo, odo.correct_trajectory, []
+
+        def tapped(traj, *args, **kw):
+            out = self.orig(traj, *args, **kw)
+            self.calls.append((traj, out, args, kw))
+            return out
+
+        odo.correct_trajectory = tapped
+
+    def close(self):
+        self.odo.correct_trajectory = self.orig
+
+
+def traj_diff(a, b) -> tuple[float, float]:
+    return (float((a.rvecs - b.rvecs).abs().max()), float((a.tvecs - b.tvecs).abs().max()))
+
+
+def stream_equiv_phase(torch, dev, feats, K, fifo):
+    """OdometryStream over the odometry phase's 120 features, pushed one at
+    a time, against that phase's FIFO run_odometry run (see
+    STREAM_EQUIV_ATOL)."""
+    from sift_parallel_optimization_tpu_torch.models import odometry as odo
+
+    n, W = len(feats), ODO_WINDOW
+    max_loops = max(8, (n - W) // (3 + 1) + 1)      # run_odometry's pick for this n
+    gen = torch.Generator(device=dev).manual_seed(ODO_DRAW_SEED)
+    tap = CorrectionTap(odo)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream = odo.OdometryStream(gen, K, window=W, pts_per_frame=ODO_PTS_PER_FRAME,
+                                    loop_closure=True, max_loops=max_loops)
+        for f in feats:
+            stream.push(f)
+        traj, _m, info = stream.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tap.close()
+    check(len(tap.calls) == 1, f"stream_equiv: {len(tap.calls)} end-of-run corrections")
+    raw, _out, args, kw = tap.calls[0]
+    # The same correction once more on the same input: how far the end-of-run
+    # PGO moves between two runs on the card.
+    again = tap.orig(raw, *args, **kw)
+    b_traj, b_info, b_raw = fifo["traj"], fifo["info"], fifo["raw"]
+    d_r, d_t = traj_diff(traj, b_traj)
+    check(info["loop_frames"] == b_info["loop_frames"],
+          f"stream_equiv: loops {info['loop_frames']} vs run_odometry's {b_info['loop_frames']}")
+    raw_r, raw_t = traj_diff(raw, b_raw)
+    rep_r, rep_t = traj_diff(again, traj)
+    check(info["graph_replays"] > 0 and info["loops_dropped"] == 0,
+          f"stream_equiv: {info['graph_replays']} replays, {info['loops_dropped']} dropped")
+    check(max(raw_r, raw_t) <= STREAM_EQUIV_ATOL,
+          f"stream_equiv: before the correction rotations differ by {raw_r:.3e}, translations "
+          f"by {raw_t:.3e} (atol {STREAM_EQUIV_ATOL})")
+    check(max(d_r, d_t) <= STREAM_EQUIV_ATOL,
+          f"stream_equiv: corrected rotations differ by {d_r:.3e}, translations by {d_t:.3e} "
+          f"(atol {STREAM_EQUIV_ATOL}; before the correction {raw_r:.3e} / {raw_t:.3e}; the "
+          f"same correction run twice: {rep_r:.3e} / {rep_t:.3e})")
+    phase("stream_equiv", f"OdometryStream over the odometry phase's {n} features (FIFO, "
+          f"W={W}, draws seeded {ODO_DRAW_SEED}, max_loops {max_loops} on both sides) vs "
+          f"run_odometry: loops {info['loop_frames']} (equal), largest difference before the "
+          f"correction: rotations {raw_r:.3e}, translations {raw_t:.3e}; after it: "
+          f"{d_r:.3e} / {d_t:.3e} (atol {STREAM_EQUIV_ATOL}); the same correction run twice: "
+          f"{rep_r:.3e} / {rep_t:.3e}; {info['graph_replays']} replays, {wall:.3f} s "
+          f"(frontend excluded)")
+
+
+class ServeTap:
+    """Wraps ``FrameLoader.next_frame``, ``cli.upload_frame``,
+    ``SiftFrontend.forward`` and ``OdometryStream.push`` while open: CUDA
+    events and the host clock around each call, the push's kind ("fill":
+    frames before the window is full, "warm", "capture", "replay"), and host
+    syncs. Loads, uploads and pushes that replay a captured step run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a sync raises); the rest
+    under "warn", their sync warnings counted by kind (the frontend's first
+    call, the warm-up frame, apart: it builds the shape's cached tables)."""
+
+    def __init__(self, torch, odo, frontend_cls, cli, native):
+        self.torch, self.calls, self.syncs = torch, [], {}
+        self.targets = ((native.FrameLoader, "next_frame"), (cli, "upload_frame"),
+                        (frontend_cls, "forward"), (odo.OdometryStream, "push"))
+        self.origs = [getattr(c, a) for c, a in self.targets]
+        o_load, o_up, o_fwd, o_push = self.origs
+        tap = self
+
+        def timed(kind, fn, strict):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error" if strict else "warn")
+            try:
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    out = fn()
+            except RuntimeError as e:
+                raise SmokeFailure(f"stream: a {kind} call synchronized with the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+            end.record()
+            tap.calls.append([kind, start, end, time.perf_counter() - t0, t0])
+            n_sync = sum("synchroniz" in str(w.message) for w in seen)
+            if n_sync:
+                tap.syncs[kind] = tap.syncs.get(kind, 0) + n_sync
+            return out
+
+        def push(stream, feats):
+            i, r = stream.frames, stream.runner
+            if r is not None and r.graph and stream.variant(i) in r.graphs:
+                return timed("replay", lambda: o_push(stream, feats), strict=True)
+            state = lambda r: (len(r.warm), len(r.graphs)) if r is not None else (0, 0)
+            before = state(r)
+            out = timed("push", lambda: o_push(stream, feats), strict=False)
+            r, after = stream.runner, state(stream.runner)
+            kind = ("fill" if r is None else "capture" if after[1] > before[1]
+                    else "warm" if after[0] > before[0] else "eager")
+            tap.calls[-1][0] = kind
+            if "push" in tap.syncs:
+                tap.syncs[kind] = tap.syncs.get(kind, 0) + tap.syncs.pop("push")
+            return out
+
+        def forward(fe, img):
+            first = not any(c[0] == "frontend first" for c in tap.calls)
+            return timed("frontend first" if first else "frontend", lambda: o_fwd(fe, img),
+                         strict=False)
+
+        wrappers = (lambda ld: timed("load", lambda: o_load(ld), strict=True),
+                    lambda frame, dev: timed("upload", lambda: o_up(frame, dev), strict=True),
+                    forward, push)
+        for (cls, attr), fn in zip(self.targets, wrappers):
+            setattr(cls, attr, fn)
+
+    def close(self):
+        for (cls, attr), orig in zip(self.targets, self.origs):
+            setattr(cls, attr, orig)
+
+    def summary(self):
+        """{kind: (median ms between events, total ms between events, host
+        median ms, calls, host clock at the first call's start)}."""
+        self.torch.cuda.synchronize()
+        out = {}
+        for kind in ("load", "upload", "frontend", "fill", "warm", "capture", "replay", "eager"):
+            rows = [(s.elapsed_time(e), h * 1e3, t) for k, s, e, h, t in self.calls if k == kind]
+            if rows:
+                ev = [a for a, _h, _t in rows]
+                out[kind] = (float(np.median(ev)), float(sum(ev)),
+                             float(np.median([h for _a, h, _t in rows])), len(rows), rows[0][2])
+        return out
+
+
+def stream_phase(torch, dev, counters):
+    """cli stream's serving loop on the card in the three STREAM_RUNS runs;
+    returns each run's kernel launches (the path's own counts)."""
+    from sift_parallel_optimization_tpu_torch import cli
+    from sift_parallel_optimization_tpu_torch.models import odometry as odo
+    from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+    from sift_parallel_optimization_tpu_torch.utils import native
+    from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
+
+    check(native.available(), "stream: the port's host library did not build on the card, so "
+          f"no frame can come from it: {native.build_error()}")
+    launches, lines = {}, []
+    for name, size, window, loops in STREAM_RUNS:
+        with native.FrameLoader(size, n_buffers=4, n_threads=2, seed=0) as ld:
+            ld.next_frame()
+            t0 = time.perf_counter()
+            for _ in range(STREAM_FRAMES):
+                ld.next_frame()
+            loader_fps = STREAM_FRAMES / (time.perf_counter() - t0)
+        tap = ServeTap(torch, odo, SiftFrontend, cli, native)
+        try:
+            res, launches[f"stream {name}"] = counted(
+                torch, counters, lambda: cli.serve_stream(STREAM_FRAMES, size, 512, 0, window,
+                                                          loops, dev))
+            t_ret = time.perf_counter()
+        finally:
+            tap.close()
+        got = {k: c for k, c in launches[f"stream {name}"].items() if c}
+        check(got == {"patch_gather": STREAM_FRAMES + 1, "score_tables": STREAM_FRAMES + 1},
+              f"stream {name}: launched {got}, not kernels 2a and 3 once a frame for "
+              f"{STREAM_FRAMES} frames and the warm-up")
+        ms = res["seconds"] * 1e3 / STREAM_FRAMES
+        times = tap.summary()
+        check(set(times) >= {"load", "upload", "frontend"} and times["load"][3] == STREAM_FRAMES + 1,
+              f"stream {name}: the loop did not take its frames from the host library's loader")
+        host = lambda k: f"{k} {times[k][2]:.3f}" if k in times else f"{k} -"
+        ev = lambda k: (f"{k} median {times[k][0]:.3f} ms, total {times[k][1]:.3f} ms "
+                        f"(n={times[k][3]})" if k in times else f"{k} none")
+        fe = SiftFrontend(sift_config(size), max_keypoints=512, dual_orientation=bool(window),
+                          device=dev)
+        img = torch.from_numpy(native.synth_frame(size, 0, seed=0)).to(dev)
+        fe_ops, fe_dev, _p = profile_device(fe, img, warmup=1, iters=10)
+        dev_ms = fe_dev
+        steady_ms, text = ms, ""
+        s = res["stream"]
+        if s is not None:
+            traj, m, info = s.finish()
+            check(traj.rvecs.shape == (STREAM_FRAMES, 3)
+                  and bool(torch.isfinite(traj.rvecs).all() & torch.isfinite(traj.tvecs).all()),
+                  f"stream {name}: trajectory {tuple(traj.rvecs.shape)} or non-finite poses")
+            r = s.runner
+            # A capture replays its graph once too.
+            n_replay = sum(times.get(k, (0, 0, 0, 0))[3] for k in ("capture", "replay"))
+            check(info["graph_replays"] == n_replay and "replay" in times and len(r.graphs) >= 2
+                  and "eager" not in times,
+                  f"stream {name}: {info['graph_replays']} graph replays for {n_replay} "
+                  f"captured or replayed pushes, {len(r.graphs)} graphs")
+            # From the first replayed push to the end: the steady rate.
+            steady_ms = (t_ret - times["replay"][4]) * 1e3 / times["replay"][3]
+            # Device ms of one steady step of each variant that replays, run
+            # eagerly on the finished stream's buffers (the graph runs the
+            # same kernels).
+            gen = torch.Generator(device=dev).manual_seed(0)
+            step = {}
+            for do_ba in (False, True):
+                r.u.uniform_(generator=gen)
+                step[do_ba] = profile_device(lambda: r.body(do_ba, loops), warmup=0,
+                                             iters=1)[:2]
+            dev_ms += (step[False][1] + step[True][1]) / 2
+            extent = np.ptp(traj.tvecs.cpu().numpy(), axis=0).round(3).tolist()
+            text = (f"; pushes between events: {ev('fill')}; {ev('warm')}; {ev('capture')}; "
+                    f"{ev('replay')}; {info['graph_replays']} replays of {len(r.graphs)} graphs; "
+                    f"steady step device ms without / with BA {step[False][1]:.3f} / "
+                    f"{step[True][1]:.3f} ({step[False][0]:.0f} / {step[True][0]:.0f} launches "
+                    f"eager); {traj.rvecs.shape[0]} poses, {len(info['loop_frames'])} loops, "
+                    f"{info['loops_dropped']} dropped, extent {extent}")
+        syncs = {k: v for k, v in tap.syncs.items() if v}
+        lines.append(
+            f"({name}) {size}^2 K=512{', dual orientations' if window else ''}"
+            f"{f', W={window}' if window else ', frontend only'}"
+            f"{', loop closure' if loops else ''}: {STREAM_FRAMES} frames in "
+            f"{res['seconds']:.3f} s -> {STREAM_FRAMES / res['seconds']:.1f} fps, {ms:.3f} "
+            f"ms/frame end to end, steady {steady_ms:.3f} ms/frame"
+            f"{' (from the first replayed push on)' if s is not None else ''}, "
+            f"{res['keypoints'] / STREAM_FRAMES:.0f} keypoints/frame; loader alone "
+            f"{loader_fps:.1f} frames/s; launches kernel 3 {got['score_tables']}, kernel 2a "
+            f"{got['patch_gather']}; host median ms a call: {host('load')}, {host('upload')}, "
+            f"{host('frontend')}, {host('replay')}; frontend {times['frontend'][0]:.3f} ms "
+            f"between events, {fe_dev:.3f} device ms in {fe_ops:.0f} ops" + text
+            + f"; device {dev_ms:.3f} ms a frame: busy {100 * dev_ms / ms:.1f}% end to end, "
+            f"{100 * dev_ms / steady_ms:.1f}% steady; host syncs in loads, uploads and "
+            f"replayed pushes: 0" + (f"; warn: host syncs {syncs}" if syncs else
+                                     "; no other host sync"))
+    phase("stream", f"host library {os.path.relpath(native._BUILD_DIR, HERE)} built with"
+          f"{'' if native.has_png() else 'out'} libpng; " + "; ".join(lines))
     return launches
 
 
@@ -1657,8 +1942,14 @@ def main() -> int:
     # 7d. The tracking step: windowed odometry with loop closure on rendered
     # frames through the batched frontend (its frontend's launches counted as
     # the path's own), and the pose-graph solvers it ends with.
-    path_launches["odometry"] = odometry_phase(torch, dev, counters)
+    path_launches["odometry"], odo_feats, odo_K, fifo = odometry_phase(torch, dev, counters)
+    stream_equiv_phase(torch, dev, odo_feats, odo_K, fifo)
+    del odo_feats
     pgo_phase(torch, dev)
+
+    # 7d'. Online serving: cli stream's loop on the card, frontend only and
+    # with online odometry (each run's frontend launches counted as its own).
+    path_launches.update(stream_phase(torch, dev, counters))
 
     # 7e. Incremental SfM with loop closure at configuration 4, and the same
     # driver on the card against the CPU.

@@ -4,18 +4,22 @@
   python -m sift_parallel_optimization_tpu_torch.cli features --size 512 --device cuda
   python -m sift_parallel_optimization_tpu_torch.cli sfm --frames 6 --size 256 --device cuda
   python -m sift_parallel_optimization_tpu_torch.cli sfm --frames 40 --window 6 --loop-closure
+  python -m sift_parallel_optimization_tpu_torch.cli stream --frames 200 --size 256 --window 6 --loop-closure
 
 Defaults follow the JAX package's CLI (size 512, S=2, K=512; sfm: 6 frames
-of 256^2). With ``--device cuda`` and no GPU present the command fails; it
-never moves to the CPU on its own. ``sfm`` renders its frames with the
-native host library, or its NumPy form where the library does not build;
-``--image-dir`` reads frames through the library.
+of 256^2; stream: 200 frames of 512^2). With ``--device cuda`` and no GPU
+present the command fails; it never moves to the CPU on its own. ``sfm``
+renders its frames with the port's host library (``utils/native``), or its
+NumPy form where the library does not build; ``--image-dir`` reads frames
+through the library. ``stream`` takes its frames from the library's ring
+loader and fails where the library does not build.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 import torch
@@ -233,6 +237,88 @@ def _cmd_sfm(args) -> int:
     return 0
 
 
+def upload_frame(frame: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host frame as a tensor on ``dev``: to the card through pinned
+    memory without waiting for the copy (the caching host allocator does not
+    hand the pinned block out again before the copy is done).
+
+    The frame goes into pinned memory by a one-thread numpy copy, not by
+    ``pin_memory()``: that copies with the intra-op thread pool, whose
+    threads stall beside the loader's busy workers (on the H100 host: 2.9 ms
+    against 1.6 for a 512^2 frame with its load, tools/stream_upload_probe.py).
+    """
+    if dev.type != "cuda":
+        return torch.from_numpy(frame)
+    pinned = torch.empty(frame.shape, dtype=torch.float32, pin_memory=True)
+    np.copyto(pinned.numpy(), frame)
+    return pinned.to(dev, non_blocking=True)
+
+
+def serve_stream(frames: int, size: int, max_keypoints: int = 512, seed: int = 0,
+                 window: int = 0, loop_closure: bool = False, device="cuda") -> dict:
+    """The serving loop of ``cli stream``: the host library's ring loader ->
+    ``SiftFrontend`` (dual orientations with a ``window``) -> with a
+    ``window``, ``OdometryStream.push``; one warm-up frame first, then
+    ``frames`` timed frames.
+
+    Frames go to the card from pinned memory without blocking, and the
+    keypoint counts stay on the device until one read at the end, so the
+    host runs ahead of the card: loading frame i + 1 overlaps the device
+    work of frame i. The time ends after the device has finished. Returns
+    {"frames", "seconds", "keypoints" (total over the timed frames),
+    "stream" (the OdometryStream, not yet finished, or None)}.
+    """
+    from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+    from sift_parallel_optimization_tpu_torch.models.odometry import OdometryStream
+    from sift_parallel_optimization_tpu_torch.utils import native
+
+    dev = _device(str(device))
+    fe = SiftFrontend(sift_config(size), max_keypoints=max_keypoints,
+                      dual_orientation=bool(window), device=dev)
+    stream = None
+    if window:
+        focal = float(size)
+        K = torch.tensor([[focal, 0.0, size / 2], [0.0, focal, size / 2], [0.0, 0.0, 1.0]],
+                         device=dev)
+        stream = OdometryStream(torch.Generator(device=dev).manual_seed(seed), K, window=window,
+                                loop_closure=loop_closure)
+    with native.FrameLoader(size, n_buffers=4, n_threads=2, seed=seed) as ld:
+        _, frame = ld.next_frame()
+        int(fe(upload_frame(frame, dev)).keypoints.count())        # warm-up
+        counts = []
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            _, frame = ld.next_frame()
+            feats = fe(upload_frame(frame, dev))
+            counts.append(feats.keypoints.count())
+            if stream is not None:
+                stream.push(feats)
+        n_kp = int(torch.stack(counts).sum()) if counts else 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+    return {"frames": frames, "seconds": dt, "keypoints": n_kp, "stream": stream}
+
+
+def _cmd_stream(args) -> int:
+    """Continuous serving: the host library's ring loader -> frontend, and
+    with ``--window`` online odometry (``OdometryStream``); prints the
+    end-to-end rate and, with a window, the stream's trajectory."""
+    res = serve_stream(args.frames, args.size, args.max_keypoints, args.seed, args.window,
+                       args.loop_closure, args.device)
+    fps = res["frames"] / res["seconds"]
+    print(f"{res['frames']} frames in {res['seconds']:.2f}s -> {fps:.1f} fps "
+          f"({1e3 / fps:.2f} ms/frame end-to-end pipelined); "
+          f"{res['keypoints'] / max(res['frames'], 1):.0f} keypoints/frame")
+    if res["stream"] is not None:
+        traj, _m, info = res["stream"].finish()
+        c = traj.tvecs.cpu().numpy()
+        print(f"online odometry (W={args.window}"
+              f"{', loop closure' if args.loop_closure else ''}): {traj.rvecs.shape[0]} poses, "
+              f"{len(info['loop_frames'])} loops, extent {np.ptp(c, axis=0).round(3).tolist()}")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sift_parallel_optimization_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -285,6 +371,20 @@ def main(argv=None) -> int:
                    help="max timestamp gap for frame<->gt association (s)")
     s.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     s.set_defaults(fn=_cmd_sfm)
+    st = sub.add_parser("stream", help="continuous serving loop: ring loader -> frontend "
+                                       "[-> online odometry]")
+    st.add_argument("--frames", type=int, default=200)
+    st.add_argument("--size", type=int, default=512)
+    st.add_argument("--max-keypoints", type=int, default=512)
+    st.add_argument("--seed", type=int, default=0)
+    st.add_argument("--window", type=int, default=0,
+                    help="> 0: online sliding-window odometry on the stream "
+                         "(models/odometry.OdometryStream); 0 = frontend-only serving")
+    st.add_argument("--loop-closure", action="store_true",
+                    help="with --window: archive-ring loop closure and an end-of-stream "
+                         "pose-graph correction")
+    st.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    st.set_defaults(fn=_cmd_stream)
     args = p.parse_args(argv)
     return args.fn(args)
 

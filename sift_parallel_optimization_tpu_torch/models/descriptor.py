@@ -370,3 +370,23 @@ def orient_and_describe(
     )
     both = Keypoints(*[torch.cat([unfold(a), unfold(b)], dim=-1) for a, b in zip(kp1, kp2)])
     return both, torch.cat([unfold(desc1), unfold(desc2)], dim=-2)
+
+
+def assign_orientations(gauss_octaves: list[torch.Tensor], kp: Keypoints) -> Keypoints:
+    """Fill ``kp.orientation`` with the dominant gradient direction (0 at
+    invalid slots): one orientation a keypoint; :func:`orient_and_describe`
+    with ``dual_orientation`` gives Lowe's secondary-peak duplicates."""
+    s_o, _s_d, off_o, _off_d, sig_o = _sample_grids(gauss_octaves, kp)
+    flat = Keypoints(*[f.reshape(-1) for f in kp])
+    theta, _theta2, _ok = _orientation_from_samples(s_o, off_o, sig_o, flat)
+    theta = torch.where(flat.valid, theta, torch.zeros_like(theta))
+    return kp._replace(orientation=theta.reshape(kp.valid.shape))
+
+
+def compute_descriptors(gauss_octaves: list[torch.Tensor], kp: Keypoints) -> torch.Tensor:
+    """(K, 128) L2-normalised, 0.2-clipped SIFT descriptors (Lowe 2004) at
+    the keypoints' own orientations; zero rows at invalid slots."""
+    _s_o, s_d, _off_o, off_d, sig_o = _sample_grids(gauss_octaves, kp)
+    flat = Keypoints(*[f.reshape(-1) for f in kp])
+    hist = _descriptors_from_samples(s_d, off_d, sig_o, flat.orientation, flat)
+    return _normalize_desc(hist, flat.valid).reshape(*kp.valid.shape, -1)

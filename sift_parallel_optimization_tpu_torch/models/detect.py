@@ -396,3 +396,18 @@ def detect_pyramid(dogs: list[torch.Tensor], cfg: PyramidConfig, max_keypoints: 
     :func:`detect_pyramid_batched`, which documents ``thresholds``."""
     kp = detect_pyramid_batched([d[None] for d in dogs], cfg, max_keypoints, **thresholds)
     return Keypoints(*[f[0] for f in kp])
+
+
+def detect_octave(dog: torch.Tensor, octave: int, cfg: PyramidConfig, capacity: int,
+                  contrast_threshold: float = CONTRAST_THRESHOLD, edge_ratio: float = EDGE_RATIO,
+                  refine_iters: int = 1) -> Keypoints:
+    """(S+2, H, W) DoG stack of ONE octave -> Keypoints with ``capacity``
+    slots, coordinates and sigma in original image units (scaled by
+    2^octave), ``octave`` in every slot. The exact selection branch of
+    :func:`detect_pyramid` on this octave alone, rescaled: a power-of-two
+    product is exact, so the result is that octave's detection bit for bit."""
+    kp = detect_pyramid([dog], cfg, capacity, contrast_threshold=contrast_threshold,
+                        edge_ratio=edge_ratio, refine_iters=refine_iters, use_approx_topk=False)
+    mult = float(2 ** octave)
+    return kp._replace(x=kp.x * mult, y=kp.y * mult, sigma=kp.sigma * mult,
+                       octave=torch.full_like(kp.octave, octave))

@@ -1,5 +1,6 @@
 """Sliding-window visual odometry: O(window) memory for sequences of any
-length (port of ``models/odometry.py``: ``run_odometry`` and its parts).
+length (port of ``models/odometry.py``: ``run_odometry``, its online form
+``OdometryStream`` and their parts).
 
 ``models/sfm``'s map capacities scale with the total frame count. This module
 is the constant-memory companion: a fixed WINDOW of the most recent frames is
@@ -30,7 +31,9 @@ buffers (:class:`SteadyStepRunner`). Nothing in the steady state reads the
 device on the host. RANSAC draws are made outside the graph: a (2, 768)
 uniform buffer filled from the caller's generator before each frame, mapped
 onto the valid slots inside the step, so a replay draws fresh numbers and the
-eager and the captured step draw the same ones.
+eager and the captured step draw the same ones. :class:`OdometryStream`
+serves frames one at a time through the same runner, fed frame by frame
+from a two-slot ring of static feature buffers.
 """
 
 from __future__ import annotations
@@ -601,10 +604,20 @@ class SteadyStepRunner:
     The carry lives in this object's tensors (``carry``): the window map,
     ``used``, the anchors, the archive and the loop buffer. Each frame's
     inputs are static too: the frame index ``i`` (0-d int32) and the
-    uniforms ``u`` (2, PNP_DRAWS) for the two PnPs; the features are
-    gathered on the device from the stacked sequence, and the frozen pose is
-    written into row i - W of the trajectory buffers ``frozen_r/_t``. The
-    body reads the carry, computes the next one and copies it back in place.
+    uniforms ``u`` (2, PNP_DRAWS) for the two PnPs. The features come from
+    one of two sources, both indexed on the device from ``i``:
+
+    * ``features`` (a sequence, ``run_odometry``): the stacked sequence,
+      frames ``i`` and ``i - 1``; the frozen pose goes into row ``i - W`` of
+      the trajectory buffers ``frozen`` = (frozen_r, frozen_t).
+    * ``ring`` (one frame's Features, the capacity of every frame;
+      :class:`OdometryStream`): a two-slot ring of static feature buffers,
+      frame ``i`` in slot ``i % 2`` and its predecessor in ``(i - 1) % 2``,
+      filled by :meth:`feed` outside the graph; the frozen pose goes into a
+      static (3,) pair ``frozen_r``, ``frozen_t``.
+
+    The body reads the carry, computes the next one and copies it back in
+    place, so one graph per variant serves every frame.
 
     With ``graph`` (on a CUDA device), the first frame of each variant
     (do_ba, do_loop) runs the body eagerly on a side stream, which warms up
@@ -615,19 +628,43 @@ class SteadyStepRunner:
     frame runs the same body eagerly (the CPU tests and the ``sampler`` path).
     """
 
-    def __init__(self, step, carry: OdometryCarry, features: Sequence[Features],
-                 frozen_r: torch.Tensor, frozen_t: torch.Tensor, window: int, graph: bool):
-        dev = frozen_r.device
+    def __init__(self, step, carry: OdometryCarry, window: int, graph: bool, *,
+                 features: Sequence[Features] | None = None,
+                 frozen: tuple[torch.Tensor, torch.Tensor] | None = None,
+                 ring: Features | None = None):
+        if (features is None) == (ring is None) or (features is None) != (frozen is None):
+            raise ValueError("pass features and frozen (a sequence), or ring (a stream)")
+        dev = carry.used.device
         if graph and dev.type != "cuda":
             raise ValueError("graph=True needs the run on a CUDA device")
         self.step, self.carry, self.window, self.graph = step, carry, window, graph
-        self.frozen_r, self.frozen_t = frozen_r, frozen_t
-        self.stacked = _stack_features(features)
+        self.fed = ring is not None
+        if self.fed:
+            self.stacked = _stack_features([ring, ring])
+            self.frozen_r = torch.zeros(3, dtype=torch.float32, device=dev)
+            self.frozen_t = torch.zeros_like(self.frozen_r)
+        else:
+            self.stacked = _stack_features(features)
+            self.frozen_r, self.frozen_t = frozen
         self.i = torch.zeros((), dtype=torch.int32, device=dev)
         self.u = torch.zeros((2, PNP_DRAWS), dtype=torch.float32, device=dev)
         self.graphs: dict[tuple[bool, bool], torch.cuda.CUDAGraph] = {}
         self.warm: set[tuple[bool, bool]] = set()
         self.replays = 0
+
+    def feed(self, i: int, feats: Features) -> None:
+        """Copy frame ``i``'s features into ring slot ``i % 2`` (outside any
+        graph; device to device, no host read). Frame ``i``'s step reads
+        this slot and the one frame ``i - 1`` was fed into."""
+        if not self.fed:
+            raise ValueError("this runner reads a stacked sequence: it takes no feed")
+        slot = i % 2
+        for dst, src in zip(_tensors(self.stacked), _tensors(feats)):
+            if dst.shape[1:] != src.shape:
+                raise ValueError(f"features of shape {tuple(src.shape)} fed to a ring of "
+                                 f"{tuple(dst.shape[1:])}: every frame keeps the capacity of "
+                                 "the first")
+            dst[slot].copy_(src)
 
     def _uniform(self, kind: str):
         return uniform_draws(self.u[0 if kind == "pnp" else 1])
@@ -635,12 +672,17 @@ class SteadyStepRunner:
     def body(self, do_ba: bool, do_loop: bool, draws=None) -> None:
         """One steady frame on the static buffers (what a graph captures)."""
         idx = self.i.long().view(1)
+        cur, prev = (idx % 2, (idx - 1) % 2) if self.fed else (idx, idx - 1)
         new, (fr, ft) = self.step(
-            self.carry, self.i, _frame_of(self.stacked, idx), _frame_of(self.stacked, idx - 1),
+            self.carry, self.i, _frame_of(self.stacked, cur), _frame_of(self.stacked, prev),
             draws or self._uniform, do_ba, do_loop)
-        row = idx - self.window
-        self.frozen_r.index_copy_(0, row, fr[None])
-        self.frozen_t.index_copy_(0, row, ft[None])
+        if self.fed:
+            self.frozen_r.copy_(fr)
+            self.frozen_t.copy_(ft)
+        else:
+            row = idx - self.window
+            self.frozen_r.index_copy_(0, row, fr[None])
+            self.frozen_t.index_copy_(0, row, ft[None])
         for dst, src in zip(_tensors(self.carry), _tensors(new)):
             dst.copy_(src)
 
@@ -686,6 +728,41 @@ class SteadyStepRunner:
 # ---------------------------------------------------------------------------
 # run_odometry
 # ---------------------------------------------------------------------------
+
+
+def _window_ba_kwargs(W: int, B: int, solver: str, damping: float, huber_delta) -> dict:
+    """The window BA's solver keywords ("auto" resolved from the window's
+    capacities, ``models/ba.resolve_solver``)."""
+    solver = resolve_solver(W, W * B, solver)
+    kw: dict = dict(damping=damping, huber_delta=huber_delta, solver=solver)
+    if solver == "cg":
+        # A window landmark sees at most every window frame (2 birth obs +
+        # one PnP re-observation per remaining frame).
+        kw["max_obs_per_point"] = -(-W // 8) * 8
+    return kw
+
+
+def _check_archive(policy: str, size: int, B: int) -> None:
+    if policy not in ("fifo", "coverage"):
+        raise ValueError(f"archive_policy must be 'fifo' or 'coverage', got {policy!r}")
+    if policy == "coverage" and size % B != 0:
+        raise ValueError("archive_policy='coverage' needs archive_size to be a multiple of "
+                         f"pts_per_frame ({B}); got {size}")
+
+
+def _drain_loop_buffer(buf: LoopBuffer, max_loops: int):
+    """ONE host read of the device-side loop buffer: (loop frames, their
+    ArchiveLoops, closures dropped), with a warning if it saturated."""
+    host = LoopBuffer(*(t.cpu() for t in buf))
+    cnt, n_dropped = int(host.count), int(host.n_dropped)
+    frames = [int(f) for f in host.frames[:cnt]]
+    poses = [ArchiveLoop(rvec=buf.rvecs[k], tvec=buf.tvecs[k], n_inliers=host.inliers[k],
+                         birth=host.births[k]) for k in range(cnt)]
+    if n_dropped > 0:
+        logging.getLogger(__name__).warning(
+            "loop buffer saturated: %d accepted-quality closures dropped (max_loops=%d); "
+            "raise max_loops for this sequence length", n_dropped, max_loops)
+    return frames, poses, n_dropped
 
 
 def _draws(generator, sampler, kind: str, frame: int):
@@ -783,12 +860,7 @@ def run_odometry(
         raise ValueError("a sampler is a host callback: it runs with graph=False")
     m = empty_map(W, B, max_loops=0, device=dev)
 
-    solver = resolve_solver(W, W * B, solver)
-    ba_kwargs: dict = dict(damping=damping, huber_delta=huber_delta, solver=solver)
-    if solver == "cg":
-        # A window landmark sees at most every window frame (2 birth obs +
-        # one PnP re-observation per remaining frame).
-        ba_kwargs["max_obs_per_point"] = -(-W // 8) * 8
+    ba_kwargs = _window_ba_kwargs(W, B, solver, damping, huber_delta)
 
     def ba(m):
         st = bundle_adjust(m.ba_state(), m.obs, K, n_iters=ba_iters, anchors=anc, **ba_kwargs)
@@ -805,11 +877,7 @@ def run_odometry(
             max_loops = max(8, (n - W) // (loop_cooldown + 1) + 1)
         if archive_size is None:
             archive_size = 64 * B
-        if archive_policy not in ("fifo", "coverage"):
-            raise ValueError(f"archive_policy must be 'fifo' or 'coverage', got {archive_policy!r}")
-        if archive_policy == "coverage" and archive_size % B != 0:
-            raise ValueError("archive_policy='coverage' needs archive_size to be a multiple of "
-                             f"pts_per_frame ({B}); got {archive_size}")
+        _check_archive(archive_policy, archive_size, B)
         arch = empty_archive(archive_size, device=dev)
         buf = empty_loop_buffer(max_loops, device=dev)
 
@@ -898,7 +966,8 @@ def run_odometry(
         # The runner owns copies of the carry (the static buffers a graph
         # reads and writes), so the caller's tensors are never written.
         carry = _clone(carry)
-        runner = SteadyStepRunner(step, carry, features, frozen_r, frozen_t, W, graph)
+        runner = SteadyStepRunner(step, carry, W, graph, features=features,
+                                  frozen=(frozen_r, frozen_t))
         for i in range(lo, n):
             runner.run(i, bool(ba_every) and (i % ba_every == 0 or i == n - 1),
                        loop_closure and i > W, generator=generator, sampler=sampler)
@@ -907,21 +976,8 @@ def run_odometry(
         carry, replays = runner.carry, runner.replays
     m, used, anc, arch, buf = carry
 
-    # ONE host read drains the device-side loop buffer.
-    loop_frames: list[int] = []
-    loop_poses: list[ArchiveLoop] = []
-    n_dropped = 0
-    if loop_closure:
-        host = LoopBuffer(*(t.cpu() for t in buf))
-        cnt, n_dropped = int(host.count), int(host.n_dropped)
-        loop_frames = [int(f) for f in host.frames[:cnt]]
-        loop_poses = [ArchiveLoop(rvec=buf.rvecs[k], tvec=buf.tvecs[k],
-                                  n_inliers=host.inliers[k], birth=host.births[k])
-                      for k in range(cnt)]
-        if n_dropped > 0:
-            logging.getLogger(__name__).warning(
-                "loop buffer saturated: %d accepted-quality closures dropped (max_loops=%d); "
-                "raise max_loops for this sequence length", n_dropped, max_loops)
+    loop_frames, loop_poses, n_dropped = (_drain_loop_buffer(buf, max_loops) if loop_closure
+                                          else ([], [], 0))
 
     in_window = min(n, W)
     traj = Trajectory(rvecs=torch.cat([frozen_r, m.rvecs[:in_window]]),
@@ -938,6 +994,210 @@ def run_odometry(
         }
         return traj, m, info
     return traj, m
+
+
+class OdometryStream:
+    """ONLINE (frame-at-a-time) odometry for serving pipelines: the state
+    machine of :func:`run_odometry` behind a ``push`` API (port of the JAX
+    package's ``OdometryStream``).
+
+    Usage::
+
+        stream = OdometryStream(gen, K, window=8, loop_closure=True)
+        for feats in source:
+            r, t = stream.push(feats)      # newest pose estimate, on the device
+        traj, m, info = stream.finish()    # corrected full trajectory
+
+    ``push`` runs the same functions as ``run_odometry`` in the same order,
+    and draws from ``generator`` in the same order, so a streamed sequence
+    gives run_odometry's trajectory on the same features: frame 0 is
+    held (pose zeros), frame 1 bootstraps the map (``init_two_view``),
+    frames 2..W-1 register (a window BA on ``i % ba_every == 0``), and every
+    later frame runs the steady step on a frame-fed
+    :class:`SteadyStepRunner` (``do_ba = i % ba_every == 0``, ``do_loop =
+    loop_closure and i > W``), as CUDA graphs on the card (``graph`` None:
+    on for CUDA without a ``sampler``). A steady push reads nothing back on
+    the host and returns a CLONE of the newest pose: the runner's buffers
+    are overwritten by the next frame. Every frame keeps the feature
+    capacity of the first; another capacity raises.
+
+    ``finish`` is run_odometry's tail: one eager window BA if the last
+    frame ran none (``run_odometry`` always BAs its last frame), ONE host
+    read of the loop buffer (a warning if it saturated), and the pose-graph
+    correction (:func:`correct_trajectory`). The stream length is unknown,
+    so ``max_loops`` is a fixed 64 (the buffer holds ~52 bytes a slot).
+
+    ``sampler(kind, frame, valid, n_hyp, n_pts)`` replaces the generator
+    (kinds "init", "pnp", "loop"; how a test feeds the JAX package's draws)
+    and forces ``graph=False``. The device is ``K``'s.
+    """
+
+    def __init__(
+        self,
+        generator: torch.Generator | None,
+        K: torch.Tensor,
+        window: int = 8,
+        pts_per_frame: int = 128,
+        ba_every: int = 2,
+        ba_iters: int = 8,
+        damping: float = 1e-4,
+        huber_delta: float | None = 2.0,
+        solver: str = "auto",
+        loop_closure: bool = False,
+        loop_min_gap: int | None = None,
+        loop_min_inliers: int = 25,
+        loop_weight: float = 4.0,
+        loop_cooldown: int = 3,
+        max_loops: int = 64,
+        archive_size: int | None = None,
+        archive_policy: str = "fifo",
+        pgo_iters: int = 15,
+        marginalize: bool = True,
+        sampler=None,
+        graph: bool | None = None,
+    ):
+        W, B = window, pts_per_frame
+        if W < 3:
+            raise ValueError("window must be >= 3 (bootstrap pair + PnP frame)")
+        if generator is None and sampler is None:
+            raise ValueError("OdometryStream needs a torch.Generator or a sampler")
+        dev = K.device
+        if graph is None:
+            graph = dev.type == "cuda" and sampler is None
+        if graph and sampler is not None:
+            raise ValueError("a sampler is a host callback: it runs with graph=False")
+        if graph and dev.type != "cuda":
+            raise ValueError("graph=True needs the stream on a CUDA device")
+        self._gen, self._sampler, self._K, self._W, self._B = generator, sampler, K, W, B
+        self._ba_every, self._ba_iters, self._graph = ba_every, ba_iters, graph
+        self._loop_closure, self._loop_weight = loop_closure, loop_weight
+        self._pgo_iters, self._damping, self._max_loops = pgo_iters, damping, max_loops
+        self._ba_kwargs = _window_ba_kwargs(W, B, solver, damping, huber_delta)
+        if loop_closure:
+            if loop_min_gap is None:
+                loop_min_gap = W + 1
+            if archive_size is None:
+                archive_size = 64 * B
+            _check_archive(archive_policy, archive_size, B)
+        self._carry = OdometryCarry(
+            m=empty_map(W, B, max_loops=0, device=dev), used=None,
+            anc=empty_anchors((W - 1) * B, device=dev) if marginalize else None,
+            arch=empty_archive(archive_size, device=dev) if loop_closure else None,
+            buf=empty_loop_buffer(max_loops, device=dev) if loop_closure else None)
+        self._step = make_steady_step(
+            K, window=W, pts_per_frame=B, ba_iters=ba_iters, ba_kwargs=self._ba_kwargs,
+            marginalize=marginalize, loop_closure=loop_closure, loop_min_gap=loop_min_gap or 0,
+            loop_min_inliers=loop_min_inliers, loop_cooldown=loop_cooldown,
+            archive_policy=archive_policy)
+        self._runner: SteadyStepRunner | None = None
+        self._i = 0
+        self._first: Features | None = None
+        self._prev: Features | None = None
+        self._shape: tuple | None = None
+        self._frozen_r: list[torch.Tensor] = []
+        self._frozen_t: list[torch.Tensor] = []
+        self._last_ba_i = -1
+
+    @property
+    def frames(self) -> int:
+        """Frames pushed so far."""
+        return self._i
+
+    @property
+    def runner(self) -> SteadyStepRunner | None:
+        """The steady step's runner (None before frame W)."""
+        return self._runner
+
+    def variant(self, i: int) -> tuple[bool, bool]:
+        """(do_ba, do_loop) of steady frame ``i``: the graph it replays."""
+        return bool(self._ba_every) and i % self._ba_every == 0, self._loop_closure and i > self._W
+
+    def _draws(self, kind: str, frame: int):
+        return _draws(self._gen, self._sampler, kind, frame)
+
+    def _ba(self, m: SfmMap, anc: Anchors | None) -> SfmMap:
+        st = bundle_adjust(m.ba_state(), m.obs, self._K, n_iters=self._ba_iters, anchors=anc,
+                           **self._ba_kwargs)
+        return m._replace(rvecs=st.rvecs, tvecs=st.tvecs, points=st.points)
+
+    def push(self, feats: Features) -> tuple[torch.Tensor, torch.Tensor]:
+        """Feed one frame; returns its current (rvec, tvec) estimate as new
+        tensors on the device (no host read)."""
+        shape = tuple(feats.descriptors.shape)
+        if self._shape is None:
+            self._shape = shape
+        elif shape != self._shape:
+            raise ValueError(f"features of capacity {shape} pushed to a stream of {self._shape}: "
+                             "every frame keeps the capacity of the first")
+        i, W, B, K = self._i, self._W, self._B, self._K
+        m = self._carry.m
+        self._i = i + 1
+        if i == 0:
+            self._first = feats
+            zero = torch.zeros(3, dtype=torch.float32, device=K.device)
+            return zero, zero.clone()
+        if i == 1:
+            m, used = init_two_view(None, self._first, feats, K, m, B,
+                                    sample_idx=self._draws("init", 0))
+            self._carry = self._carry._replace(m=m, used=used)
+            self._first, self._prev = None, feats
+            return m.rvecs[1].clone(), m.tvecs[1].clone()
+        if i < W:
+            m, used = register_frame(None, m, feats, self._prev, i, K, self._carry.used, B,
+                                     sample_idx=self._draws("pnp", i))
+            if self._ba_every and i % self._ba_every == 0:
+                m = self._ba(m, self._carry.anc)
+                self._last_ba_i = i
+            self._carry = self._carry._replace(m=m, used=used)
+            self._prev = feats
+            return m.rvecs[i].clone(), m.tvecs[i].clone()
+        if self._runner is None:
+            # The runner owns copies of the carry (the static buffers a
+            # graph reads and writes) and a two-slot ring of features.
+            self._runner = SteadyStepRunner(self._step, _clone(self._carry), W, self._graph,
+                                            ring=feats)
+            self._runner.feed(i - 1, self._prev)
+            self._prev = None
+        runner = self._runner
+        runner.feed(i, feats)
+        do_ba, do_loop = self.variant(i)
+        runner.run(i, do_ba, do_loop, generator=self._gen, sampler=self._sampler)
+        self._frozen_r.append(runner.frozen_r.clone())
+        self._frozen_t.append(runner.frozen_t.clone())
+        if do_ba:
+            self._last_ba_i = i
+        m = runner.carry.m
+        return m.rvecs[W - 1].clone(), m.tvecs[W - 1].clone()
+
+    def finish(self):
+        """run_odometry's tail: a final window BA if the last frame ran
+        none, the loop buffer drained (one host read), the pose-graph
+        correction. Returns (Trajectory, final window map, info): info has
+        ``loop_frames``, ``loop_inliers``, ``loops_dropped`` and
+        ``graph_replays``."""
+        n = self._i
+        carry = self._runner.carry if self._runner is not None else self._carry
+        m = carry.m
+        if n >= 2 and self._ba_every and self._last_ba_i != n - 1:
+            m = self._ba(m, carry.anc)
+        loop_frames, loop_poses, n_dropped = (
+            _drain_loop_buffer(carry.buf, self._max_loops) if self._loop_closure else ([], [], 0))
+        in_window = min(n, self._W)
+        rv, tv = m.rvecs[:in_window], m.tvecs[:in_window]
+        if self._frozen_r:
+            rv = torch.cat([torch.stack(self._frozen_r), rv])
+            tv = torch.cat([torch.stack(self._frozen_t), tv])
+        traj = Trajectory(rvecs=rv, tvecs=tv)
+        if self._loop_closure and loop_frames:
+            traj = correct_trajectory(traj, loop_frames, loop_poses, loop_weight=self._loop_weight,
+                                      pgo_iters=self._pgo_iters, damping=self._damping)
+        info = {
+            "loop_frames": loop_frames,
+            "loop_inliers": [int(p.n_inliers) for p in loop_poses],
+            "loops_dropped": n_dropped,
+            "graph_replays": self._runner.replays if self._runner is not None else 0,
+        }
+        return traj, m, info
 
 
 def correct_trajectory(

@@ -1,15 +1,23 @@
-"""ctypes bindings to the native host runtime (``native/libsift_host.so``).
+"""ctypes bindings to the port's native host runtime (``csrc/sift_host.cpp``).
 
-The same library the JAX package loads: built from ``native/Makefile`` on
-first use. It supplies host-side data generation and image I/O, no device
-code. ``synth_frame`` falls back to NumPy when the library cannot be built.
+Host-side frame generation, image I/O, a prefetching ring loader and a
+monotonic clock; no device code. The library is built with ``g++`` at first
+use into ``build/host/libsift_host.so`` at the repository root (git-ignored),
+with the flags of the JAX package's ``native/Makefile`` (``-O3
+-march=native``), so its frames are bitwise equal to that library's built on
+the same machine. The build links libpng where it exists (``-DSIFT_HAVE_PNG
+-lpng``) and otherwise builds without it: then :func:`read_png` and
+:func:`write_png` raise and everything else works. Where the library cannot
+be built at all, ``synth_frame`` and ``render_frame`` fall back to NumPy and
+:class:`FrameLoader` raises.
 
 Several processes may load it at once on a fresh tree (pytest workers, for
-one). So the build runs under an exclusive ``flock`` on ``native/
+one). So the build runs under an exclusive ``flock`` on ``build/host/
 .libsift_host.lock`` into a private target that is then renamed over the
 library: no process ever opens a half-written file that this loader wrote.
-A library that another process's build left half-written fails to open; it is then
-rebuilt under the lock and opened once more before a failure is cached.
+A library that another process's build left half-written fails to open; it
+is then rebuilt under the lock and opened once more before a failure is
+cached.
 """
 
 from __future__ import annotations
@@ -23,8 +31,12 @@ from pathlib import Path
 
 import numpy as np
 
-_NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "sift_host.cpp"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 _LIB_NAME = "libsift_host.so"
+_CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra")
+# (defines, libraries) of each build to try, in order: with libpng, then without.
+_VARIANTS = ((("-DSIFT_HAVE_PNG",), ("-lpng",)), ((), ()))
 _lock = threading.Lock()
 _lib = None
 _build_error: str | None = None
@@ -32,29 +44,41 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 
 
 def _stale(lib_path: Path) -> bool:
-    return not lib_path.exists() or (
-        lib_path.stat().st_mtime < (_NATIVE_DIR / "sift_host.cpp").stat().st_mtime
-    )
+    return not lib_path.exists() or lib_path.stat().st_mtime < _SRC.stat().st_mtime
+
+
+def _compile(target: Path) -> None:
+    """g++ the source into ``target``: with libpng where it links, else
+    without; raise with every attempt's output if none builds."""
+    errors = []
+    for defines, libs in _VARIANTS:
+        cmd = ["g++", *_CXXFLAGS, *defines, str(_SRC), "-shared", "-pthread", *libs,
+               "-o", str(target)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode == 0:
+            return
+        errors.append(f"{' '.join(cmd)}\n{proc.stderr}")
+    raise OSError("building the host library failed:\n" + "\n".join(errors))
 
 
 def _build(lib_path: Path, force: bool) -> None:
     """Build under the cross-process lock into a private target, then move
     it over the library (unless another process already did, or ``force``)."""
-    with open(_NATIVE_DIR / ".libsift_host.lock", "w") as lock:
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / ".libsift_host.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not force and not _stale(lib_path):
             return
-        tmp = f"{_LIB_NAME}.{os.getpid()}.tmp"
+        tmp = _BUILD_DIR / f"{_LIB_NAME}.{os.getpid()}.tmp"
         try:
-            subprocess.run(["make", "-C", str(_NATIVE_DIR), f"TARGET={tmp}"],
-                           check=True, capture_output=True, text=True)
-            os.replace(_NATIVE_DIR / tmp, lib_path)
+            _compile(tmp)
+            os.replace(tmp, lib_path)
         finally:
-            (_NATIVE_DIR / tmp).unlink(missing_ok=True)
+            tmp.unlink(missing_ok=True)
 
 
 def _open() -> ctypes.CDLL:
-    lib_path = _NATIVE_DIR / _LIB_NAME
+    lib_path = _BUILD_DIR / _LIB_NAME
     if _stale(lib_path):
         _build(lib_path, force=False)
     try:
@@ -65,6 +89,43 @@ def _open() -> ctypes.CDLL:
         return ctypes.CDLL(str(lib_path))
 
 
+def _bind(lib) -> None:
+    """Declare every function's argument and result types."""
+    readers = [lib.sift_read_pgm, lib.sift_read_ppm]
+    if _has_png(lib):
+        readers.append(lib.sift_read_png)
+        lib.sift_write_png.restype = ctypes.c_int
+        lib.sift_write_png.argtypes = [ctypes.c_char_p, _F32P, ctypes.c_int, ctypes.c_int]
+    for reader in readers:
+        reader.restype = ctypes.c_int
+        reader.argtypes = [
+            ctypes.c_char_p, _F32P, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_long,
+        ]
+    lib.sift_write_pgm.restype = ctypes.c_int
+    lib.sift_write_pgm.argtypes = [ctypes.c_char_p, _F32P, ctypes.c_int, ctypes.c_int]
+    lib.sift_synth_frame.restype = None
+    lib.sift_synth_frame.argtypes = [_F32P, ctypes.c_int, ctypes.c_int, ctypes.c_uint64]
+    lib.sift_render_frame.restype = None
+    lib.sift_render_frame.argtypes = [
+        _F32P, ctypes.c_int, _F32P, _F32P, ctypes.c_float, ctypes.c_uint64,
+    ]
+    lib.sift_loader_create.restype = ctypes.c_void_p
+    lib.sift_loader_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint64]
+    lib.sift_loader_acquire.restype = _F32P
+    lib.sift_loader_acquire.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    lib.sift_loader_release.restype = None
+    lib.sift_loader_release.argtypes = [ctypes.c_void_p, _F32P]
+    lib.sift_loader_destroy.restype = None
+    lib.sift_loader_destroy.argtypes = [ctypes.c_void_p]
+    lib.sift_now_ms.restype = ctypes.c_double
+    lib.sift_now_ms.argtypes = []
+
+
+def _has_png(lib) -> bool:
+    return hasattr(lib, "sift_read_png")
+
+
 def _load():
     global _lib, _build_error
     with _lock:
@@ -72,31 +133,43 @@ def _load():
             return _lib
         try:
             lib = _open()
-        except (OSError, subprocess.CalledProcessError) as e:
+        except OSError as e:
             _build_error = str(e)
             return None
-        for reader in (lib.sift_read_pgm, lib.sift_read_ppm, lib.sift_read_png):
-            reader.restype = ctypes.c_int
-            reader.argtypes = [
-                ctypes.c_char_p, _F32P, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int), ctypes.c_long,
-            ]
-        lib.sift_write_pgm.restype = ctypes.c_int
-        lib.sift_write_pgm.argtypes = [ctypes.c_char_p, _F32P, ctypes.c_int, ctypes.c_int]
-        lib.sift_synth_frame.restype = None
-        lib.sift_synth_frame.argtypes = [_F32P, ctypes.c_int, ctypes.c_int, ctypes.c_uint64]
-        lib.sift_render_frame.restype = None
-        lib.sift_render_frame.argtypes = [
-            _F32P, ctypes.c_int, _F32P, _F32P, ctypes.c_float, ctypes.c_uint64,
-        ]
+        _bind(lib)
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the host library built and loaded."""
+    return _load() is not None
+
+
+def build_error() -> str | None:
+    """Why the host library is unavailable (None where it loaded)."""
+    _load()
+    return _build_error
+
+
+def has_png() -> bool:
+    """Whether the host library was built with libpng (PNG read and write)."""
+    lib = _load()
+    return lib is not None and _has_png(lib)
 
 
 def _require():
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native lib unavailable: {_build_error}")
+    return lib
+
+
+def _require_png():
+    lib = _require()
+    if not _has_png(lib):
+        raise RuntimeError("the host library was built without libpng: PNG files cannot be "
+                           "read or written here (PGM and PPM can)")
     return lib
 
 
@@ -156,8 +229,21 @@ def read_ppm(path: str | os.PathLike) -> np.ndarray:
 
 
 def read_png(path: str | os.PathLike) -> np.ndarray:
-    """Read a PNG (gray/RGB/RGBA, 8/16-bit) as (H, W) float32 grayscale."""
+    """Read a PNG (gray/RGB/RGBA, 8/16-bit) as (H, W) float32 grayscale;
+    raises where the library was built without libpng."""
+    _require_png()
     return _read_via("sift_read_png", path, *_png_dims(path))
+
+
+def write_png(path: str | os.PathLike, img: np.ndarray) -> None:
+    """Write [0, 1] floats as an 8-bit grayscale PNG."""
+    lib = _require_png()
+    img = np.ascontiguousarray(img, np.float32)
+    rc = lib.sift_write_png(
+        str(path).encode(), img.ctypes.data_as(_F32P), img.shape[1], img.shape[0]
+    )
+    if rc != 0:
+        raise IOError(f"sift_write_png({path}) failed with code {rc}")
 
 
 def imread(path: str | os.PathLike) -> np.ndarray:
@@ -306,3 +392,64 @@ def _render_frame_numpy(size: int, rvec, tvec, focal: float, seed: int) -> np.nd
     noise, _ = _uniforms((seed * 0x2545F4914F6CDD1D + 99991 + pose_hash) & _M64, size * size)
     out += f32(0.02) * (noise.reshape(size, size) - f32(0.5))
     return np.clip(out, f32(0.0), f32(1.0))
+
+
+class FrameLoader:
+    """Prefetching frame source on the host library's ring of buffers:
+    ``n_threads`` native workers fill ``n_buffers`` slots with
+    :func:`synth_frame` frames ahead of the consumer, so frame generation
+    overlaps device work.
+
+    :meth:`next_frame` returns ``(frame_idx, (size, size) float32 array)`` in
+    STRICT frame order: the workers finish frames in any order, and a frame
+    that comes early waits here for its turn. Works as a context manager;
+    :meth:`close` is idempotent. There is no NumPy form: where the host
+    library cannot be built, the constructor raises.
+    """
+
+    def __init__(self, size: int, n_buffers: int = 4, n_threads: int = 2, seed: int = 0):
+        self._handle = None
+        self._lib = _require()
+        self._size = size
+        self._next = 0
+        self._pending: dict[int, np.ndarray] = {}
+        self._handle = self._lib.sift_loader_create(size, n_buffers, n_threads,
+                                                    ctypes.c_uint64(seed))
+        if not self._handle:
+            raise RuntimeError(f"sift_loader_create({size}, {n_buffers}, {n_threads}) failed")
+
+    def _acquire(self) -> tuple[int, np.ndarray]:
+        idx = ctypes.c_int()
+        ptr = self._lib.sift_loader_acquire(self._handle, ctypes.byref(idx))
+        out = np.ctypeslib.as_array(ptr, shape=(self._size, self._size)).copy()
+        self._lib.sift_loader_release(self._handle, ptr)   # the slot refills now
+        return idx.value, out
+
+    def next_frame(self) -> tuple[int, np.ndarray]:
+        if not self._handle:
+            raise RuntimeError("FrameLoader is closed")
+        while self._next not in self._pending:
+            idx, arr = self._acquire()
+            self._pending[idx] = arr
+        i = self._next
+        self._next += 1
+        return i, self._pending.pop(i)
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.sift_loader_destroy(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        self.close()
+
+
+def now_ms() -> float:
+    """Monotonic milliseconds from the host library's steady clock."""
+    return float(_require().sift_now_ms())

@@ -120,3 +120,26 @@ def test_orient_and_describe_matches_jax(jax_stage, dual):
     norms = np.linalg.norm(got_d.numpy(), axis=1)
     np.testing.assert_allclose(norms[valid], 1.0, atol=1e-5)
     assert np.all(norms[~valid] == 0.0)
+
+
+def test_assign_orientations_and_compute_descriptors_match_jax(jax_stage):
+    """The two single-purpose entry points (the default patch radius): the
+    dominant orientation within ORI_ATOL of JAX's, then descriptors at
+    JAX's orientations within DESC_ATOL, zero rows at invalid slots."""
+    _cfg, gauss, kp, gauss_t, kp_t = jax_stage
+    want_kp = jax.jit(jdesc.assign_orientations)(gauss, kp)
+    got_kp = tdesc.assign_orientations(gauss_t, kp_t)
+    valid = np.asarray(want_kp.valid)
+    assert valid.sum() > 20
+    np.testing.assert_array_equal(got_kp.valid.numpy(), valid)
+    dtheta = got_kp.orientation.numpy() - np.asarray(want_kp.orientation)
+    dtheta = (dtheta + np.pi) % (2 * np.pi) - np.pi
+    np.testing.assert_allclose(dtheta, 0.0, atol=ORI_ATOL)
+    assert not got_kp.orientation.numpy()[~valid].any()
+    oriented = keypoints_from_numpy({f: np.asarray(v) for f, v in want_kp._asdict().items()},
+                                    "cpu")
+    want_d = np.asarray(jax.jit(jdesc.compute_descriptors)(gauss, want_kp))
+    got_d = tdesc.compute_descriptors(gauss_t, oriented).numpy()
+    assert got_d.shape == want_d.shape == (valid.shape[0], 128)
+    np.testing.assert_allclose(got_d, want_d, rtol=0, atol=DESC_ATOL)
+    assert not got_d[~valid].any()

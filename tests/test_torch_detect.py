@@ -131,3 +131,18 @@ def test_empty_and_concat_keypoints_match_jax():
         g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
         assert g.dtype == w.dtype, f
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("octave,refine_iters", [(0, 1), (1, 0), (2, 1)])
+def test_detect_octave_matches_jax(dogs256, octave, refine_iters):
+    """One octave alone (JAX routes it through detect_octaves_batched): the
+    same keypoints slot for slot, in original image units, within
+    COORD_ATOL."""
+    cfg = jfe.sift_config(256)
+    want = jax.jit(lambda d: jdet.detect_octave(d, octave, cfg, 64, refine_iters=refine_iters))(
+        jnp.asarray(dogs256[octave]))
+    got = tdet.detect_octave(torch.from_numpy(np.array(dogs256[octave])), octave,
+                             tfe.sift_config(256), 64, refine_iters=refine_iters)
+    assert int(got.count()) > 0 and got.capacity == 64
+    assert_same_keypoints(got, want)
+    assert (got.octave.numpy()[got.valid.numpy()] == octave).all()

@@ -32,6 +32,7 @@ from sift_parallel_optimization_tpu_torch.utils import native as tnative
 from sift_parallel_optimization_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parents[1]
+HOST_SRC = REPO / "sift_parallel_optimization_tpu_torch" / "csrc" / "sift_host.cpp"
 
 
 def _port_modules():
@@ -43,7 +44,8 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     for name in ("models.frontend", "models.geometry", "models.ba", "models.matching",
-                 "models.sfm", "parallel.frontend", "utils.device"):
+                 "models.sfm", "models.odometry", "parallel.frontend", "utils.device",
+                 "utils.native", "utils.profiling", "cli"):
         assert f"sift_parallel_optimization_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -239,16 +241,16 @@ def test_kernel_build_fails_loudly(monkeypatch, tmp_path):
 
 
 def test_native_loader_survives_simultaneous_first_loads(tmp_path):
-    """Four processes load the port's native library from one fresh copy of
-    native/ at the same moment: all get the library and equal frames."""
-    for name in ("Makefile", "sift_host.cpp"):
-        shutil.copy(REPO / "native" / name, tmp_path / name)
+    """Four processes build and load the port's host library from one fresh
+    copy of its source (``csrc/sift_host.cpp``) into one empty build
+    directory at the same moment: all get the library and equal frames."""
+    shutil.copy(HOST_SRC, tmp_path / "sift_host.cpp")
     code = textwrap.dedent("""
         import hashlib, sys, time
         from pathlib import Path
         from sift_parallel_optimization_tpu_torch.utils import native
         d = Path(sys.argv[1])
-        native._NATIVE_DIR = d
+        native._SRC, native._BUILD_DIR = d / "sift_host.cpp", d
         (d / f"ready.{sys.argv[2]}").touch()
         t0 = time.time()
         while len(list(d.glob("ready.*"))) < 4 and time.time() - t0 < 120:
@@ -273,12 +275,12 @@ def test_native_loader_rebuilds_a_half_written_library(tmp_path, monkeypatch):
     """A library another process's build left half-written (newer than its source,
     so not stale) fails to open: the loader rebuilds it under the lock and
     opens it, instead of caching the failure."""
-    for name in ("Makefile", "sift_host.cpp"):
-        shutil.copy(REPO / "native" / name, tmp_path / name)
+    shutil.copy(HOST_SRC, tmp_path / "sift_host.cpp")
     assert tnative._load() is not None
-    real = (REPO / "native" / "libsift_host.so").read_bytes()
+    real = (tnative._BUILD_DIR / "libsift_host.so").read_bytes()
     (tmp_path / "libsift_host.so").write_bytes(real[:64])   # the ELF header alone
-    monkeypatch.setattr(tnative, "_NATIVE_DIR", tmp_path)
+    monkeypatch.setattr(tnative, "_SRC", tmp_path / "sift_host.cpp")
+    monkeypatch.setattr(tnative, "_BUILD_DIR", tmp_path)
     monkeypatch.setattr(tnative, "_lib", None)
     monkeypatch.setattr(tnative, "_build_error", None)
     assert tnative._load() is not None, tnative._build_error
