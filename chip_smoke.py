@@ -107,6 +107,14 @@ TV_MEDIAN_REPROJ_PX = 1.5
 # tensor cores (every kernel here computes in fp32 on the CUDA cores).
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 FRONTEND_CONFIGS = ((512, 3, 512), (1024, 3, 2048))
+# The shapes each kernel is held to its plain version at: every (size, K)
+# a main path gives it. 256^2: the stream's README run (per-frame gather at
+# K=512, one frame a score-table launch) and the odometry phase (batched
+# gather at K=256, 8 frames a launch).
+K2_CONFIGS = ((256, 512), (512, 512), (1024, 2048))
+K2B_CONFIGS = ((256, 256), (512, 512), (1024, 2048))
+K3_FRONTEND = (256, 512, 1024)
+K3_TIMED = ((256, 1), (512, 1), (512, 8), (1024, 1), (1024, 8))
 # Device operations (kernels, copies, sets) one frame and one batch may
 # take, as the mean of a few profiled calls, rounded: the counts of the tree
 # before kernels 1 and 3 were redesigned (537 and 542 a frame, 557 and 565 a
@@ -206,9 +214,10 @@ ODO_PREFIX, ODO_GRAPH_ATOL = 28, 1e-4
 # at its FIFO configuration and draw seed, with the loop buffer's capacity
 # run_odometry picked there, held to that run: the same loops, and poses
 # within 1e-5 (the JAX package's stream test's atol) before and after the
-# end-of-run correction. The batch run (n = 120, (n - 1) % 2 == 1) BAs its
-# last frame inside frame 119's step, the stream in finish(); the loop
-# proposal does not read the window map, so the two orders agree.
+# end-of-run correction. run_odometry drives a stream that knows its length
+# (n = 120, (n - 1) % 2 == 1), so it BAs its last frame inside frame 119's
+# step, the stream in finish(); the loop proposal does not read the window
+# map, so the two orders agree.
 STREAM_EQUIV_ATOL = 1e-5
 # The stream phase: cli stream's serving loop (cli.serve_stream: the host
 # library's ring loader, 2 threads, 4 buffers -> SiftFrontend -> optional
@@ -221,6 +230,10 @@ STREAM_EQUIV_ATOL = 1e-5
 # phase; the other pushes and the frontend run under "warn" and their syncs
 # are counted and printed.
 STREAM_FRAMES = 200
+# Then the loop goes on for one more frame and STREAM_PROFILED frames under
+# torch.profiler (utils/profiling.profile_device): the device time of a
+# steady served frame, and its busy share of the timed frame.
+STREAM_PROFILED = 4
 STREAM_RUNS = (("a", 512, 0, False), ("b", 256, 6, True), ("c", 512, 8, True))
 THR = 0.04 / 3          # detect.CONTRAST_THRESHOLD / S
 EDGE_RATIO = 10.0
@@ -379,7 +392,7 @@ def kernel3_checks(torch, st, dev):
     """Both entry points vs their plain versions, bitwise: the rows tables on
     random DoG stacks and on the frontend's octaves; the block top-2 tables
     on the same, one frame a launch (the per-frame frontend's form), and on
-    the BATCH frames of both frontend sizes in one launch (the batched
+    the BATCH frames of each K3_FRONTEND size in one launch (the batched
     frontend's form), for refine 0 and 1. Returns (cases, max abs error,
     random stacks, {size: (flat (BATCH, L), shapes)})."""
     import numpy as np
@@ -391,7 +404,7 @@ def kernel3_checks(torch, st, dev):
         stacks[name] = [torch.from_numpy(np.stack(d)).to(dev)
                         for d in zip(*(k3_extra_frame(shapes, kind, i) for i in range(b)))]
     flats = {}
-    for size in (512, 1024):
+    for size in K3_FRONTEND:
         dogs = frontend_dogs(torch, dev, size, 3, BATCH)
         flats[size] = flat_frames(torch, dogs)
         stacks[f"frontend {size}^2 octaves"] = [d[:1] for d in dogs]
@@ -1435,7 +1448,7 @@ def stream_phase(torch, dev, counters):
     returns each run's kernel launches (the path's own counts)."""
     from sift_parallel_optimization_tpu_torch import cli
     from sift_parallel_optimization_tpu_torch.models import odometry as odo
-    from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+    from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend
     from sift_parallel_optimization_tpu_torch.utils import native
     from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
 
@@ -1443,6 +1456,7 @@ def stream_phase(torch, dev, counters):
           f"no frame can come from it: {native.build_error()}")
     launches, lines = {}, []
     for name, size, window, loops in STREAM_RUNS:
+        t_run = time.perf_counter()
         with native.FrameLoader(size, n_buffers=4, n_threads=2, seed=0) as ld:
             ld.next_frame()
             t0 = time.perf_counter()
@@ -1468,43 +1482,45 @@ def stream_phase(torch, dev, counters):
         host = lambda k: f"{k} {times[k][2]:.3f}" if k in times else f"{k} -"
         ev = lambda k: (f"{k} median {times[k][0]:.3f} ms, total {times[k][1]:.3f} ms "
                         f"(n={times[k][3]})" if k in times else f"{k} none")
-        fe = SiftFrontend(sift_config(size), max_keypoints=512, dual_orientation=bool(window),
-                          device=dev)
-        img = torch.from_numpy(native.synth_frame(size, 0, seed=0)).to(dev)
-        fe_ops, fe_dev, _p = profile_device(fe, img, warmup=1, iters=10)
-        dev_ms = fe_dev
         steady_ms, text = ms, ""
-        s = res["stream"]
+        fe, s = res["frontend"], res["stream"]
         if s is not None:
-            traj, m, info = s.finish()
-            check(traj.rvecs.shape == (STREAM_FRAMES, 3)
-                  and bool(torch.isfinite(traj.rvecs).all() & torch.isfinite(traj.tvecs).all()),
-                  f"stream {name}: trajectory {tuple(traj.rvecs.shape)} or non-finite poses")
             r = s.runner
             # A capture replays its graph once too.
             n_replay = sum(times.get(k, (0, 0, 0, 0))[3] for k in ("capture", "replay"))
-            check(info["graph_replays"] == n_replay and "replay" in times and len(r.graphs) >= 2
+            check(r.replays == n_replay and "replay" in times and len(r.graphs) >= 2
                   and "eager" not in times,
-                  f"stream {name}: {info['graph_replays']} graph replays for {n_replay} "
-                  f"captured or replayed pushes, {len(r.graphs)} graphs")
+                  f"stream {name}: {r.replays} graph replays for {n_replay} captured or "
+                  f"replayed pushes, {len(r.graphs)} graphs")
             # From the first replayed push to the end: the steady rate.
             steady_ms = (t_ret - times["replay"][4]) * 1e3 / times["replay"][3]
-            # Device ms of one steady step of each variant that replays, run
-            # eagerly on the finished stream's buffers (the graph runs the
-            # same kernels).
-            gen = torch.Generator(device=dev).manual_seed(0)
-            step = {}
-            for do_ba in (False, True):
-                r.u.uniform_(generator=gen)
-                step[do_ba] = profile_device(lambda: r.body(do_ba, loops), warmup=0,
-                                             iters=1)[:2]
-            dev_ms += (step[False][1] + step[True][1]) / 2
+        # The device time of a steady served frame: the same loop (load,
+        # upload, frontend, push) goes on for STREAM_PROFILED frames on this
+        # run's frontend and stream, in one torch.profiler run; every device
+        # record of those frames counts, the replayed graphs' kernels with
+        # them.
+        with native.FrameLoader(size, n_buffers=4, n_threads=2, seed=0) as ld:
+            def serve_one():
+                feats = fe(cli.upload_frame(ld.next_frame()[1], dev))
+                if s is not None:
+                    s.push(feats)
+
+            dev_ops, dev_ms, _p = profile_device(serve_one, warmup=1, iters=STREAM_PROFILED)
+        if s is not None:
+            # The steady step alone is thousands of launches: a trace that
+            # kept only the frontend's records has lost the graphs' kernels.
+            check(dev_ops > 2000, f"stream {name}: the profiler kept {dev_ops:.0f} device "
+                  "records a served frame: the replayed graphs' kernels are missing")
+            traj, m, info = s.finish()
+            n_pushed = STREAM_FRAMES + 1 + STREAM_PROFILED
+            check(traj.rvecs.shape == (n_pushed, 3)
+                  and bool(torch.isfinite(traj.rvecs).all() & torch.isfinite(traj.tvecs).all()),
+                  f"stream {name}: trajectory {tuple(traj.rvecs.shape)} or non-finite poses")
             extent = np.ptp(traj.tvecs.cpu().numpy(), axis=0).round(3).tolist()
             text = (f"; pushes between events: {ev('fill')}; {ev('warm')}; {ev('capture')}; "
-                    f"{ev('replay')}; {info['graph_replays']} replays of {len(r.graphs)} graphs; "
-                    f"steady step device ms without / with BA {step[False][1]:.3f} / "
-                    f"{step[True][1]:.3f} ({step[False][0]:.0f} / {step[True][0]:.0f} launches "
-                    f"eager); {traj.rvecs.shape[0]} poses, {len(info['loop_frames'])} loops, "
+                    f"{ev('replay')}; {s.runner.replays} replays of {len(s.runner.graphs)} "
+                    f"graphs; {traj.rvecs.shape[0]} poses ({STREAM_FRAMES} timed, "
+                    f"{1 + STREAM_PROFILED} profiled), {len(info['loop_frames'])} loops, "
                     f"{info['loops_dropped']} dropped, extent {extent}")
         syncs = {k: v for k, v in tap.syncs.items() if v}
         lines.append(
@@ -1518,11 +1534,13 @@ def stream_phase(torch, dev, counters):
             f"{loader_fps:.1f} frames/s; launches kernel 3 {got['score_tables']}, kernel 2a "
             f"{got['patch_gather']}; host median ms a call: {host('load')}, {host('upload')}, "
             f"{host('frontend')}, {host('replay')}; frontend {times['frontend'][0]:.3f} ms "
-            f"between events, {fe_dev:.3f} device ms in {fe_ops:.0f} ops" + text
-            + f"; device {dev_ms:.3f} ms a frame: busy {100 * dev_ms / ms:.1f}% end to end, "
-            f"{100 * dev_ms / steady_ms:.1f}% steady; host syncs in loads, uploads and "
-            f"replayed pushes: 0" + (f"; warn: host syncs {syncs}" if syncs else
-                                     "; no other host sync"))
+            f"median between events" + text
+            + f"; a steady served frame on the device (profiled, {STREAM_PROFILED} frames): "
+            f"{dev_ms:.3f} ms in {dev_ops:.0f} records: busy {100 * dev_ms / ms:.1f}% of the "
+            f"end-to-end frame, {100 * dev_ms / steady_ms:.1f}% of the steady one; host syncs "
+            f"in loads, uploads and replayed pushes: 0" + (f"; warn: host syncs {syncs}" if syncs
+                                                          else "; no other host sync")
+            + f"; run {time.perf_counter() - t_run:.1f} s")
     phase("stream", f"host library {os.path.relpath(native._BUILD_DIR, HERE)} built with"
           f"{'' if native.has_png() else 'out'} libpng; " + "; ".join(lines))
     return launches
@@ -1714,37 +1732,39 @@ def main() -> int:
           + f"; a one-element zero_() {launch_floor_ms:.4f} ms; 512^2 per call: kernel "
           f"{k1_call:.4f} ms, plain {k1_plain_call:.4f} ms")
 
-    # 4. Kernel 2 vs its plain version on the card, on the frontend's atlases.
+    # 4. Kernel 2 vs its plain version on the card, on the frontend's atlases
+    # (256^2: the stream's README run).
     rng = np.random.default_rng(0)
     rows, cols = 96, 256
     k2_ms, k2_err, k2_lib = {}, 0.0, {}
-    for size, k in ((512, 512), (1024, 2048)):
+    for size, k in K2_CONFIGS:
         atlas = frontend_atlas(torch, dev, size, 3)
         ys, xs = gather_origins(torch, rng, k, atlas.shape[0], atlas.shape[1], rows, cols, dev)
-        k2_lib[k] = device_kernel_ms(gather_index_call(torch, atlas, ys, xs, rows, cols),
+        k2_lib[size] = device_kernel_ms(gather_index_call(torch, atlas, ys, xs, rows, cols),
                                      iters=50)
         got = pg.extract_atlas_patches_cuda(atlas, ys, xs, rows, cols)
         want = pg.extract_atlas_patches_plain(atlas, ys, xs, rows, cols)
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"kernel 2 not bitwise equal at K={k}")
+        check(torch.equal(got, want), f"kernel 2 not bitwise equal at {size}^2, K={k}")
         k2_err = max(k2_err, float((got - want).abs().max()))
         args = (atlas, ys, xs, rows, cols)
-        k2_ms[k] = (
+        k2_ms[size] = (
             device_kernel_ms(pg.extract_atlas_patches_cuda, *args, iters=50),
             device_kernel_ms(pg.extract_atlas_patches_plain, *args, iters=50),
             cuda_time_ms(pg.extract_atlas_patches_cuda, *args, iters=50),
             cuda_time_ms(pg.extract_atlas_patches_plain, *args, iters=50),
-            tuple(atlas.shape),
+            tuple(atlas.shape), k,
         )
     phase("kernel2", "patch_gather 96x256 bitwise equal; " + "; ".join(
-        f"K={k} atlas {a}: device kernel {m:.4f} ms, plain {p:.4f} ms, one indexing call "
-        f"{k2_lib[k]:.4f} ms; per call kernel {mc:.4f} ms, plain {pc:.4f} ms"
-        for k, (m, p, mc, pc, a) in k2_ms.items()))
+        f"{size}^2 K={k} atlas {a}: device kernel {m:.4f} ms, plain {p:.4f} ms, one indexing "
+        f"call {k2_lib[size]:.4f} ms; per call kernel {mc:.4f} ms, plain {pc:.4f} ms"
+        for size, (m, p, mc, pc, a, k) in k2_ms.items()))
 
     # 4a. The batched gather vs its plain version on the card, on the batched
-    # frontend's own (B, R, C) atlases, plus one atlas shared by all frames.
+    # frontend's own (B, R, C) atlases, plus one atlas shared by all frames
+    # (256^2 at K=256: the odometry phase's batched frontend).
     k2b_ms, k2b_err, k2b_cases = {}, 0.0, 0
-    for size, k in ((512, 512), (1024, 2048)):
+    for size, k in K2B_CONFIGS:
         fe = SiftFrontend(sift_config(size, S=3), device=dev)
         batch = torch.stack([torch.from_numpy(native.synth_frame(size, i, seed=0))
                              for i in range(BATCH)]).to(dev)
@@ -1789,17 +1809,18 @@ def main() -> int:
             f(g, dog, THR, EDGE_RATIO, iters=50)
             for f in (device_kernel_ms, cuda_time_ms)
             for g in (st.score_tables_rows_cuda, st.score_tables_rows_plain))
-    for size, (flat, shapes) in k3_flats.items():
-        for b in (1, BATCH):
-            args = (flat[:b], shapes, THR, EDGE_RATIO, 1)
-            k3_ms[f"block_top2 {size}^2 pyramid B={b}"] = tuple(
-                f(g, *args, iters=20 if b == 1 else 5)
-                for f in (device_kernel_ms, cuda_time_ms)
-                for g in (st.score_block_top2_cuda, st.score_block_top2_plain))
+    for size, b in K3_TIMED:
+        flat, shapes = k3_flats[size]
+        args = (flat[:b], shapes, THR, EDGE_RATIO, 1)
+        k3_ms[f"block_top2 {size}^2 pyramid B={b}"] = tuple(
+            f(g, *args, iters=20 if b == 1 else 5)
+            for f in (device_kernel_ms, cuda_time_ms)
+            for g in (st.score_block_top2_cuda, st.score_block_top2_plain))
     phase("kernel3", f"score_tables rows + block_top2 bitwise equal to plain in {k3_cases} "
           f"cases, max_abs_err={k3_err:.3e} "
-          f"(random 512^2, 1024^2, 250x370 stacks and frontend 512^2, 1024^2 octaves, one "
-          f"frame a launch; the {BATCH} frames of both frontend streams in one launch; "
+          f"(random 512^2, 1024^2, 250x370 stacks and frontend "
+          f"{', '.join(f'{n}^2' for n in K3_FRONTEND)} octaves, one frame a launch; the "
+          f"{BATCH} frames of each frontend stream in one launch; "
           f"{', '.join(K3_EXTRA)}); " +
           "; ".join(f"{n}: device kernel {m:.4f} ms, plain {p:.4f} ms; per call kernel "
                     f"{mc:.4f} ms, plain {pc:.4f} ms" for n, (m, p, mc, pc) in k3_ms.items()))
@@ -2009,12 +2030,13 @@ def main() -> int:
 
     bounds = {
         **{f"reference_dog_pyramid {n}^2 S=2": pyramid_bound(n) for n in K1_TIMED},
-        "patch_gather K=512": gather_bound(512, k2_ms[512][4]),
-        "patch_gather K=2048": gather_bound(2048, k2_ms[2048][4]),
-        f"patch_gather_batched B={BATCH} K=512": gather_bound(BATCH * 512, k2b_ms[512][5]),
-        f"patch_gather_batched B={BATCH} K=2048": gather_bound(BATCH * 2048, k2b_ms[1024][5]),
+        **{f"patch_gather {size}^2 K={k}": gather_bound(k, k2_ms[size][4])
+           for size, k in K2_CONFIGS},
+        **{f"patch_gather_batched {size}^2 B={BATCH} K={k}": gather_bound(BATCH * k,
+                                                                        k2b_ms[size][5])
+           for size, k in K2B_CONFIGS},
         **{f"score_tables block_top2 {size}^2 B={b}": tables_bound(size, b)
-           for size in (512, 1024) for b in (1, BATCH)},
+           for size, b in K3_TIMED},
         "score_tables rows (5,512,512)": rows_bound(stacks["random 512x512"][0][0]),
         "score_tables rows (5,1024,1024)": rows_bound(stacks["random 1024x1024"][0][0]),
         "gather_resample K=512": resample_bound(512),
@@ -2024,8 +2046,8 @@ def main() -> int:
           f"{PEAK_FP32_FLOPS / 1e12:.0f} fp32 TFLOP/s: " + "; ".join(
               f"{name}: {ms:.4f} ({by})" for name, (ms, by) in bounds.items())
           + f"; floor of any launch (a one-element zero_()): {launch_floor_ms:.4f} ms")
-    k2_bound, k2b_bound = bounds["patch_gather K=512"], bounds[
-        f"patch_gather_batched B={BATCH} K=512"]
+    k2_bound, k2b_bound = bounds["patch_gather 512^2 K=512"], bounds[
+        f"patch_gather_batched 512^2 B={BATCH} K=512"]
     k3_bound = bounds["score_tables block_top2 512^2 B=1"]
     k4_bound = bounds["gather_resample K=512"]
     m512, p512 = k2_ms[512][:2]

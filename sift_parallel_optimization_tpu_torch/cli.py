@@ -266,7 +266,8 @@ def serve_stream(frames: int, size: int, max_keypoints: int = 512, seed: int = 0
     host runs ahead of the card: loading frame i + 1 overlaps the device
     work of frame i. The time ends after the device has finished. Returns
     {"frames", "seconds", "keypoints" (total over the timed frames),
-    "stream" (the OdometryStream, not yet finished, or None)}.
+    "frontend" (the SiftFrontend), "stream" (the OdometryStream, not yet
+    finished, or None)}.
     """
     from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
     from sift_parallel_optimization_tpu_torch.models.odometry import OdometryStream
@@ -297,7 +298,7 @@ def serve_stream(frames: int, size: int, max_keypoints: int = 512, seed: int = 0
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
-    return {"frames": frames, "seconds": dt, "keypoints": n_kp, "stream": stream}
+    return {"frames": frames, "seconds": dt, "keypoints": n_kp, "frontend": fe, "stream": stream}
 
 
 def _cmd_stream(args) -> int:

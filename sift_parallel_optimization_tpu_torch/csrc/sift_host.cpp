@@ -3,12 +3,21 @@
 // multithreaded prefetching ring loader and a monotonic ms clock. No device
 // code; bound with ctypes (utils/native.py).
 //
-// The same generators as native/sift_host.cpp, so frames are bitwise equal
-// to that library's when both are built with the same flags on the same
-// machine. The two libpng functions (sift_read_png, sift_write_png) exist
-// only when SIFT_HAVE_PNG is defined: utils/native.py builds with
-// -DSIFT_HAVE_PNG -lpng first and without both where libpng is missing, so
-// the rest of the library serves frames on a machine without libpng.
+// A copy of native/sift_host.cpp (the JAX package's library), which must
+// stay equal to it in xorshift, uniform01, sift_synth_frame,
+// sift_render_frame, the PGM/PPM/PNG readers and writers and the ring
+// loader's frame order, so frames are bitwise equal to that library's when
+// both are built with the same flags on the same machine
+// (tests/test_torch_native_loader.py holds the frames and the loader to
+// it). Where it differs, on purpose:
+//   * the two libpng functions (sift_read_png, sift_write_png) exist only
+//     when SIFT_HAVE_PNG is defined: utils/native.py builds with
+//     -DSIFT_HAVE_PNG -lpng first and without both where libpng is missing,
+//     so the rest of the library serves frames on a machine without libpng;
+//   * sift_synth_frame wraps a blob's columns by whole frames (x % size).
+//     The original wraps once, which agrees wherever a blob is narrower
+//     than the frame (every size above 48) and writes out of bounds below;
+//   * <cctype> is included explicitly.
 //
 //   * PGM (P5/P2) read/write and PPM (P6/P3) read, Rec.601 luma to gray.
 //   * Deterministic synthetic frames (blob field + value noise) and a

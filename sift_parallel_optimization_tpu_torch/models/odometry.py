@@ -31,9 +31,10 @@ buffers (:class:`SteadyStepRunner`). Nothing in the steady state reads the
 device on the host. RANSAC draws are made outside the graph: a (2, 768)
 uniform buffer filled from the caller's generator before each frame, mapped
 onto the valid slots inside the step, so a replay draws fresh numbers and the
-eager and the captured step draw the same ones. :class:`OdometryStream`
-serves frames one at a time through the same runner, fed frame by frame
-from a two-slot ring of static feature buffers.
+eager and the captured step draw the same ones. The runner is fed
+frame by frame through a two-slot ring of static feature buffers:
+:class:`OdometryStream` serves frames one at a time on it, and
+:func:`run_odometry` pushes its sequence through a stream.
 """
 
 from __future__ import annotations
@@ -603,18 +604,13 @@ class SteadyStepRunner:
 
     The carry lives in this object's tensors (``carry``): the window map,
     ``used``, the anchors, the archive and the loop buffer. Each frame's
-    inputs are static too: the frame index ``i`` (0-d int32) and the
-    uniforms ``u`` (2, PNP_DRAWS) for the two PnPs. The features come from
-    one of two sources, both indexed on the device from ``i``:
-
-    * ``features`` (a sequence, ``run_odometry``): the stacked sequence,
-      frames ``i`` and ``i - 1``; the frozen pose goes into row ``i - W`` of
-      the trajectory buffers ``frozen`` = (frozen_r, frozen_t).
-    * ``ring`` (one frame's Features, the capacity of every frame;
-      :class:`OdometryStream`): a two-slot ring of static feature buffers,
-      frame ``i`` in slot ``i % 2`` and its predecessor in ``(i - 1) % 2``,
-      filled by :meth:`feed` outside the graph; the frozen pose goes into a
-      static (3,) pair ``frozen_r``, ``frozen_t``.
+    inputs are static too: the frame index ``i`` (0-d int32), the uniforms
+    ``u`` (2, PNP_DRAWS) for the two PnPs, and a two-slot ring of feature
+    buffers shaped as ``ring`` (one frame's Features: every frame keeps its
+    capacity). Frame ``i`` sits in slot ``i % 2`` and its predecessor in
+    ``(i - 1) % 2``, both indexed on the device from ``i``; :meth:`feed`
+    fills a slot outside the graph. The evicted slot-0 pose goes into the
+    static (3,) pair ``frozen_r``, ``frozen_t``.
 
     The body reads the carry, computes the next one and copies it back in
     place, so one graph per variant serves every frame.
@@ -628,24 +624,14 @@ class SteadyStepRunner:
     frame runs the same body eagerly (the CPU tests and the ``sampler`` path).
     """
 
-    def __init__(self, step, carry: OdometryCarry, window: int, graph: bool, *,
-                 features: Sequence[Features] | None = None,
-                 frozen: tuple[torch.Tensor, torch.Tensor] | None = None,
-                 ring: Features | None = None):
-        if (features is None) == (ring is None) or (features is None) != (frozen is None):
-            raise ValueError("pass features and frozen (a sequence), or ring (a stream)")
+    def __init__(self, step, carry: OdometryCarry, graph: bool, ring: Features):
         dev = carry.used.device
         if graph and dev.type != "cuda":
             raise ValueError("graph=True needs the run on a CUDA device")
-        self.step, self.carry, self.window, self.graph = step, carry, window, graph
-        self.fed = ring is not None
-        if self.fed:
-            self.stacked = _stack_features([ring, ring])
-            self.frozen_r = torch.zeros(3, dtype=torch.float32, device=dev)
-            self.frozen_t = torch.zeros_like(self.frozen_r)
-        else:
-            self.stacked = _stack_features(features)
-            self.frozen_r, self.frozen_t = frozen
+        self.step, self.carry, self.graph = step, carry, graph
+        self.ring = _stack_features([ring, ring])
+        self.frozen_r = torch.zeros(3, dtype=torch.float32, device=dev)
+        self.frozen_t = torch.zeros_like(self.frozen_r)
         self.i = torch.zeros((), dtype=torch.int32, device=dev)
         self.u = torch.zeros((2, PNP_DRAWS), dtype=torch.float32, device=dev)
         self.graphs: dict[tuple[bool, bool], torch.cuda.CUDAGraph] = {}
@@ -656,10 +642,8 @@ class SteadyStepRunner:
         """Copy frame ``i``'s features into ring slot ``i % 2`` (outside any
         graph; device to device, no host read). Frame ``i``'s step reads
         this slot and the one frame ``i - 1`` was fed into."""
-        if not self.fed:
-            raise ValueError("this runner reads a stacked sequence: it takes no feed")
         slot = i % 2
-        for dst, src in zip(_tensors(self.stacked), _tensors(feats)):
+        for dst, src in zip(_tensors(self.ring), _tensors(feats)):
             if dst.shape[1:] != src.shape:
                 raise ValueError(f"features of shape {tuple(src.shape)} fed to a ring of "
                                  f"{tuple(dst.shape[1:])}: every frame keeps the capacity of "
@@ -672,17 +656,11 @@ class SteadyStepRunner:
     def body(self, do_ba: bool, do_loop: bool, draws=None) -> None:
         """One steady frame on the static buffers (what a graph captures)."""
         idx = self.i.long().view(1)
-        cur, prev = (idx % 2, (idx - 1) % 2) if self.fed else (idx, idx - 1)
         new, (fr, ft) = self.step(
-            self.carry, self.i, _frame_of(self.stacked, cur), _frame_of(self.stacked, prev),
+            self.carry, self.i, _frame_of(self.ring, idx % 2), _frame_of(self.ring, (idx - 1) % 2),
             draws or self._uniform, do_ba, do_loop)
-        if self.fed:
-            self.frozen_r.copy_(fr)
-            self.frozen_t.copy_(ft)
-        else:
-            row = idx - self.window
-            self.frozen_r.index_copy_(0, row, fr[None])
-            self.frozen_t.index_copy_(0, row, ft[None])
+        self.frozen_r.copy_(fr)
+        self.frozen_t.copy_(ft)
         for dst, src in zip(_tensors(self.carry), _tensors(new)):
             dst.copy_(src)
 
@@ -846,49 +824,34 @@ def run_odometry(
     JAX package's draws. ``graph`` runs the steady step as CUDA graphs
     (:class:`SteadyStepRunner`); None means True on a CUDA device without a
     sampler, else False.
+
+    The frames go one by one through an :class:`OdometryStream`. What the
+    known length adds: ``max_loops`` from ``n``, the last frame's window BA
+    inside its own step, and checkpoints.
     """
     n = len(features)
     W, B = window, pts_per_frame
-    if W < 3:
-        raise ValueError("window must be >= 3 (bootstrap pair + PnP frame)")
-    if generator is None and sampler is None:
-        raise ValueError("run_odometry needs a torch.Generator or a sampler")
-    dev = K.device
-    if graph is None:
-        graph = dev.type == "cuda" and sampler is None
-    if graph and sampler is not None:
-        raise ValueError("a sampler is a host callback: it runs with graph=False")
-    m = empty_map(W, B, max_loops=0, device=dev)
-
-    ba_kwargs = _window_ba_kwargs(W, B, solver, damping, huber_delta)
-
-    def ba(m):
-        st = bundle_adjust(m.ba_state(), m.obs, K, n_iters=ba_iters, anchors=anc, **ba_kwargs)
-        return m._replace(rvecs=st.rvecs, tvecs=st.tvecs, points=st.points)
-
-    anc = empty_anchors((W - 1) * B, device=dev) if marginalize else None
-    arch = buf = None
     if loop_closure:
-        if loop_min_gap is None:
-            loop_min_gap = W + 1
         if max_loops is None:
             # Proposals start at frame W + 1 and the cooldown admits at most
             # one acceptance per loop_cooldown + 1 frames.
             max_loops = max(8, (n - W) // (loop_cooldown + 1) + 1)
         if archive_size is None:
             archive_size = 64 * B
-        _check_archive(archive_policy, archive_size, B)
-        arch = empty_archive(archive_size, device=dev)
-        buf = empty_loop_buffer(max_loops, device=dev)
-
-    # Frozen poses of evicted frames: row f is frame f (written at eviction).
-    frozen_r = torch.zeros((max(n - W, 0), 3), dtype=torch.float32, device=dev)
-    frozen_t = torch.zeros_like(frozen_r)
-    used = torch.zeros(features[0].keypoints.valid.shape[0], dtype=torch.bool, device=dev)
+    stream = OdometryStream(
+        generator, K, window=W, pts_per_frame=B, ba_every=ba_every, ba_iters=ba_iters,
+        damping=damping, huber_delta=huber_delta, solver=solver, loop_closure=loop_closure,
+        loop_min_gap=loop_min_gap, loop_min_inliers=loop_min_inliers, loop_weight=loop_weight,
+        loop_cooldown=loop_cooldown, max_loops=max_loops, archive_size=archive_size,
+        archive_policy=archive_policy, pgo_iters=pgo_iters, marginalize=marginalize,
+        sampler=sampler, graph=graph)
+    stream._final = n - 1
+    # The JAX package's run_odometry corrects at correct_trajectory's own
+    # damping, its OdometryStream at the BA's.
+    del stream._correct_kw["damping"]
 
     # --- checkpoint / resume (as run_sfm; utils/checkpoint) ---------------
-    ckpt = None
-    start = 2
+    start = 0
     if checkpoint_dir is not None:
         from sift_parallel_optimization_tpu_torch.utils import checkpoint as ckpt
 
@@ -899,7 +862,7 @@ def run_odometry(
             "archive_size": int(archive_size or 0),
             "desc_capacity": int(features[0].descriptors.shape[0]),
             # Anchor capacity changes the state AND the BA trajectory.
-            "anchors": 0 if anc is None else int(anc.valid.shape[0]),
+            "anchors": (W - 1) * B if marginalize else 0,
         }
         if loop_closure:
             # The overwrite policy changes which blocks survive, hence the
@@ -907,14 +870,13 @@ def run_odometry(
             ckpt_meta["archive_policy"] = archive_policy
             ckpt_meta["max_loops"] = int(max_loops)
 
-        def _state(at_step: int, carry: OdometryCarry) -> dict:
+        def _state(carry: OdometryCarry, frozen_r: list, frozen_t: list) -> dict:
             # The frozen-pose count is a function of the step, so the
             # restore template is exact without fingerprinting n.
-            F = max(0, at_step - W + 1)
             state = {"m": carry.m, "used": carry.used}
-            if F > 0:
-                state["frozen_r"] = frozen_r[:F]
-                state["frozen_t"] = frozen_t[:F]
+            if frozen_r:
+                state["frozen_r"] = torch.stack(frozen_r)
+                state["frozen_t"] = torch.stack(frozen_t)
             for name in ("arch", "buf", "anc"):
                 if getattr(carry, name) is not None:
                     state[name] = getattr(carry, name)
@@ -922,76 +884,27 @@ def run_odometry(
 
         step0 = ckpt.latest_step(checkpoint_dir)
         if step0 is not None:
-            like = _state(step0, OdometryCarry(m, used, anc, arch, buf))
+            used = torch.zeros(features[0].keypoints.valid.shape[0], dtype=torch.bool,
+                               device=K.device)
+            zeros = [torch.zeros(3, dtype=torch.float32, device=K.device)] * max(0, step0 - W + 1)
+            like = _state(stream._carry._replace(used=used), zeros, zeros)
             state, step0 = ckpt.load_pytree(checkpoint_dir, like, meta=ckpt_meta,
                                             meta_defaults={"archive_policy": "fifo"})
-            m, used = state["m"], state["used"]
-            F = max(0, step0 - W + 1)
-            if F > 0:
-                frozen_r[:F] = state["frozen_r"]
-                frozen_t[:F] = state["frozen_t"]
-            arch, buf, anc = (state.get(k, v) for k, v in
-                              (("arch", arch), ("buf", buf), ("anc", anc)))
+            carry = OdometryCarry(state["m"], state["used"], state.get("anc"),
+                                  state.get("arch"), state.get("buf"))
+            stream._resume(step0 + 1, carry, state.get("frozen_r"), state.get("frozen_t"),
+                           features[step0])
             start = step0 + 1
 
-        def _save(at_step: int, carry: OdometryCarry) -> None:
-            ckpt.save_pytree(checkpoint_dir, _state(at_step, carry), step=at_step,
-                             meta=ckpt_meta)
-
-    def _due(i: int) -> bool:
-        return ckpt is not None and checkpoint_every > 0 and i % checkpoint_every == 0
-
-    if start == 2:
-        m, used = init_two_view(None, features[0], features[1], K, m, B,
-                                sample_idx=_draws(generator, sampler, "init", 0))
-    # ---- window-filling frames (i < W): register-only, no eviction ----
-    for i in range(start, min(n, W)):
-        m, used = register_frame(None, m, features[i], features[i - 1], i, K, used, B,
-                                 sample_idx=_draws(generator, sampler, "pnp", i))
-        if ba_every and (i % ba_every == 0 or i == n - 1):
-            m = ba(m)
-        if _due(i):
-            _save(i, OdometryCarry(m, used, anc, arch, buf))
-
-    # ---- steady state (i >= W): one step, replayed -------------------------
-    carry = OdometryCarry(m, used, anc, arch, buf)
-    replays = 0
-    lo = max(start, W)
-    if lo < n:
-        step = make_steady_step(
-            K, window=W, pts_per_frame=B, ba_iters=ba_iters, ba_kwargs=ba_kwargs,
-            marginalize=marginalize, loop_closure=loop_closure,
-            loop_min_gap=loop_min_gap or 0, loop_min_inliers=loop_min_inliers,
-            loop_cooldown=loop_cooldown, archive_policy=archive_policy)
-        # The runner owns copies of the carry (the static buffers a graph
-        # reads and writes), so the caller's tensors are never written.
-        carry = _clone(carry)
-        runner = SteadyStepRunner(step, carry, W, graph, features=features,
-                                  frozen=(frozen_r, frozen_t))
-        for i in range(lo, n):
-            runner.run(i, bool(ba_every) and (i % ba_every == 0 or i == n - 1),
-                       loop_closure and i > W, generator=generator, sampler=sampler)
-            if _due(i):
-                _save(i, runner.carry)
-        carry, replays = runner.carry, runner.replays
-    m, used, anc, arch, buf = carry
-
-    loop_frames, loop_poses, n_dropped = (_drain_loop_buffer(buf, max_loops) if loop_closure
-                                          else ([], [], 0))
-
-    in_window = min(n, W)
-    traj = Trajectory(rvecs=torch.cat([frozen_r, m.rvecs[:in_window]]),
-                      tvecs=torch.cat([frozen_t, m.tvecs[:in_window]]))
-    if loop_closure and loop_frames:
-        traj = correct_trajectory(traj, loop_frames, loop_poses, loop_weight=loop_weight,
-                                  pgo_iters=pgo_iters)
+    for i in range(start, n):
+        stream.push(features[i])
+        if checkpoint_dir is not None and checkpoint_every > 0 and i >= 2 \
+                and i % checkpoint_every == 0:
+            ckpt.save_pytree(checkpoint_dir,
+                             _state(stream._live, stream._frozen_r, stream._frozen_t),
+                             step=i, meta=ckpt_meta)
+    traj, m, info = stream.finish()
     if return_info:
-        info = {
-            "loop_frames": list(loop_frames),
-            "loop_inliers": [int(p.n_inliers) for p in loop_poses],
-            "loops_dropped": n_dropped,
-            "graph_replays": replays,
-        }
         return traj, m, info
     return traj, m
 
@@ -999,7 +912,7 @@ def run_odometry(
 class OdometryStream:
     """ONLINE (frame-at-a-time) odometry for serving pipelines: the state
     machine of :func:`run_odometry` behind a ``push`` API (port of the JAX
-    package's ``OdometryStream``).
+    package's ``OdometryStream``; ``run_odometry`` drives one).
 
     Usage::
 
@@ -1008,24 +921,24 @@ class OdometryStream:
             r, t = stream.push(feats)      # newest pose estimate, on the device
         traj, m, info = stream.finish()    # corrected full trajectory
 
-    ``push`` runs the same functions as ``run_odometry`` in the same order,
-    and draws from ``generator`` in the same order, so a streamed sequence
-    gives run_odometry's trajectory on the same features: frame 0 is
-    held (pose zeros), frame 1 bootstraps the map (``init_two_view``),
-    frames 2..W-1 register (a window BA on ``i % ba_every == 0``), and every
-    later frame runs the steady step on a frame-fed
-    :class:`SteadyStepRunner` (``do_ba = i % ba_every == 0``, ``do_loop =
-    loop_closure and i > W``), as CUDA graphs on the card (``graph`` None:
-    on for CUDA without a ``sampler``). A steady push reads nothing back on
-    the host and returns a CLONE of the newest pose: the runner's buffers
-    are overwritten by the next frame. Every frame keeps the feature
-    capacity of the first; another capacity raises.
+    ``push`` runs frame 0 held (pose zeros), frame 1 bootstraps the map
+    (``init_two_view``), frames 2..W-1 register (a window BA on ``i %
+    ba_every == 0``), and every later frame runs the steady step on a
+    :class:`SteadyStepRunner` fed frame by frame (``do_ba = i % ba_every ==
+    0``, ``do_loop = loop_closure and i > W``), as CUDA graphs on the card
+    (``graph`` None: on for CUDA without a ``sampler``). Draws come from
+    ``generator`` in run_odometry's order, so a streamed sequence gives
+    run_odometry's trajectory on the same features. A steady push reads
+    nothing back on the host and returns a CLONE of the newest pose: the
+    runner's buffers are overwritten by the next frame. Every frame keeps
+    the feature capacity of the first; another capacity raises.
 
     ``finish`` is run_odometry's tail: one eager window BA if the last
-    frame ran none (``run_odometry`` always BAs its last frame), ONE host
-    read of the loop buffer (a warning if it saturated), and the pose-graph
-    correction (:func:`correct_trajectory`). The stream length is unknown,
-    so ``max_loops`` is a fixed 64 (the buffer holds ~52 bytes a slot).
+    frame ran none (``run_odometry`` knows its length and runs that BA inside
+    the last frame's step), ONE host read of the loop buffer (a warning if it
+    saturated), and the pose-graph correction (:func:`correct_trajectory`).
+    The stream length is unknown, so ``max_loops`` is a fixed 64 (the buffer
+    holds ~52 bytes a slot).
 
     ``sampler(kind, frame, valid, n_hyp, n_pts)`` replaces the generator
     (kinds "init", "pnp", "loop"; how a test feeds the JAX package's draws)
@@ -1060,7 +973,7 @@ class OdometryStream:
         if W < 3:
             raise ValueError("window must be >= 3 (bootstrap pair + PnP frame)")
         if generator is None and sampler is None:
-            raise ValueError("OdometryStream needs a torch.Generator or a sampler")
+            raise ValueError("odometry needs a torch.Generator or a sampler")
         dev = K.device
         if graph is None:
             graph = dev.type == "cuda" and sampler is None
@@ -1070,8 +983,8 @@ class OdometryStream:
             raise ValueError("graph=True needs the stream on a CUDA device")
         self._gen, self._sampler, self._K, self._W, self._B = generator, sampler, K, W, B
         self._ba_every, self._ba_iters, self._graph = ba_every, ba_iters, graph
-        self._loop_closure, self._loop_weight = loop_closure, loop_weight
-        self._pgo_iters, self._damping, self._max_loops = pgo_iters, damping, max_loops
+        self._loop_closure, self._max_loops = loop_closure, max_loops
+        self._correct_kw = dict(loop_weight=loop_weight, pgo_iters=pgo_iters, damping=damping)
         self._ba_kwargs = _window_ba_kwargs(W, B, solver, damping, huber_delta)
         if loop_closure:
             if loop_min_gap is None:
@@ -1097,6 +1010,9 @@ class OdometryStream:
         self._frozen_r: list[torch.Tensor] = []
         self._frozen_t: list[torch.Tensor] = []
         self._last_ba_i = -1
+        # The last frame's index where the length is known (run_odometry):
+        # that frame runs its window BA in its own step and finish adds none.
+        self._final: int | None = None
 
     @property
     def frames(self) -> int:
@@ -1108,9 +1024,16 @@ class OdometryStream:
         """The steady step's runner (None before frame W)."""
         return self._runner
 
+    @property
+    def _live(self) -> OdometryCarry:
+        """The carry as of the last push (the runner's from frame W on)."""
+        return self._carry if self._runner is None else self._runner.carry
+
     def variant(self, i: int) -> tuple[bool, bool]:
-        """(do_ba, do_loop) of steady frame ``i``: the graph it replays."""
-        return bool(self._ba_every) and i % self._ba_every == 0, self._loop_closure and i > self._W
+        """(do_ba, do_loop) of frame ``i`` (for a steady frame: the graph it
+        replays)."""
+        do_ba = bool(self._ba_every) and (i % self._ba_every == 0 or i == self._final)
+        return do_ba, self._loop_closure and i > self._W
 
     def _draws(self, kind: str, frame: int):
         return _draws(self._gen, self._sampler, kind, frame)
@@ -1119,6 +1042,15 @@ class OdometryStream:
         st = bundle_adjust(m.ba_state(), m.obs, self._K, n_iters=self._ba_iters, anchors=anc,
                            **self._ba_kwargs)
         return m._replace(rvecs=st.rvecs, tvecs=st.tvecs, points=st.points)
+
+    def _resume(self, i: int, carry: OdometryCarry, frozen_r, frozen_t, prev: Features) -> None:
+        """Go on at frame ``i`` from a checkpointed carry, the (i - W, 3)
+        frozen poses (None before the window filled) and frame i - 1's
+        features (run_odometry's resume)."""
+        self._i, self._carry, self._prev = i, carry, prev
+        self._shape = tuple(prev.descriptors.shape)
+        self._frozen_r = [] if frozen_r is None else list(frozen_r.unbind(0))
+        self._frozen_t = [] if frozen_t is None else list(frozen_t.unbind(0))
 
     def push(self, feats: Features) -> tuple[torch.Tensor, torch.Tensor]:
         """Feed one frame; returns its current (rvec, tvec) estimate as new
@@ -1132,6 +1064,7 @@ class OdometryStream:
         i, W, B, K = self._i, self._W, self._B, self._K
         m = self._carry.m
         self._i = i + 1
+        do_ba, do_loop = self.variant(i)
         if i == 0:
             self._first = feats
             zero = torch.zeros(3, dtype=torch.float32, device=K.device)
@@ -1145,7 +1078,7 @@ class OdometryStream:
         if i < W:
             m, used = register_frame(None, m, feats, self._prev, i, K, self._carry.used, B,
                                      sample_idx=self._draws("pnp", i))
-            if self._ba_every and i % self._ba_every == 0:
+            if do_ba:
                 m = self._ba(m, self._carry.anc)
                 self._last_ba_i = i
             self._carry = self._carry._replace(m=m, used=used)
@@ -1154,13 +1087,11 @@ class OdometryStream:
         if self._runner is None:
             # The runner owns copies of the carry (the static buffers a
             # graph reads and writes) and a two-slot ring of features.
-            self._runner = SteadyStepRunner(self._step, _clone(self._carry), W, self._graph,
-                                            ring=feats)
+            self._runner = SteadyStepRunner(self._step, _clone(self._carry), self._graph, feats)
             self._runner.feed(i - 1, self._prev)
             self._prev = None
         runner = self._runner
         runner.feed(i, feats)
-        do_ba, do_loop = self.variant(i)
         runner.run(i, do_ba, do_loop, generator=self._gen, sampler=self._sampler)
         self._frozen_r.append(runner.frozen_r.clone())
         self._frozen_t.append(runner.frozen_t.clone())
@@ -1176,9 +1107,9 @@ class OdometryStream:
         ``loop_frames``, ``loop_inliers``, ``loops_dropped`` and
         ``graph_replays``."""
         n = self._i
-        carry = self._runner.carry if self._runner is not None else self._carry
+        carry = self._live
         m = carry.m
-        if n >= 2 and self._ba_every and self._last_ba_i != n - 1:
+        if n >= 2 and self._final is None and self._ba_every and self._last_ba_i != n - 1:
             m = self._ba(m, carry.anc)
         loop_frames, loop_poses, n_dropped = (
             _drain_loop_buffer(carry.buf, self._max_loops) if self._loop_closure else ([], [], 0))
@@ -1189,8 +1120,7 @@ class OdometryStream:
             tv = torch.cat([torch.stack(self._frozen_t), tv])
         traj = Trajectory(rvecs=rv, tvecs=tv)
         if self._loop_closure and loop_frames:
-            traj = correct_trajectory(traj, loop_frames, loop_poses, loop_weight=self._loop_weight,
-                                      pgo_iters=self._pgo_iters, damping=self._damping)
+            traj = correct_trajectory(traj, loop_frames, loop_poses, **self._correct_kw)
         info = {
             "loop_frames": loop_frames,
             "loop_inliers": [int(p.n_inliers) for p in loop_poses],

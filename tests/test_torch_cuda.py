@@ -239,6 +239,32 @@ def test_profile_device_counts_every_timed_launch(dev):
         assert ops == 1 and 0 < ms < 1
 
 
+def test_profile_device_counts_the_kernels_of_a_replayed_graph(dev):
+    """A call that replays a captured graph of 40 kernels and launches one
+    more eagerly: the helper counts all 41 device records a call, not the
+    two host launches."""
+    from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
+
+    x = torch.zeros(1024, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x.add_(1.0)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(40):
+            x.add_(1.0)
+
+    def call():
+        g.replay()
+        x.mul_(0.5)
+
+    for _ in range(3):
+        ops, ms, _prof = profile_device(call, iters=5)
+        assert ops == 41 and 0 < ms < 5
+
+
 def test_wrappers_check_inputs(dev):
     with pytest.raises(ValueError, match="square"):
         ss.reference_dog_pyramid_cuda(torch.zeros(8, 16, device=dev), 2)

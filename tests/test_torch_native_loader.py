@@ -44,6 +44,23 @@ def test_loader_frames_in_order_and_equal_to_synth_and_jax(jax_native, size, n_t
             np.testing.assert_array_equal(frame, fj)
 
 
+@pytest.mark.parametrize("size", [49, 64, 97, 256])
+def test_frames_equal_the_jax_library(jax_native, size):
+    """synth_frame at sizes above 48 (where both libraries wrap a blob the
+    same way), two frames and two seeds, and render_frame at one pose:
+    bitwise equal to the JAX package's library, so an edit to either copy
+    of sift_host.cpp that makes the frames drift fails here."""
+    for idx, seed in ((0, 0), (7, 3)):
+        np.testing.assert_array_equal(tnative.synth_frame(size, idx, seed=seed),
+                                      jax_native.synth_frame(size, idx, seed=seed))
+    rvec = np.array([0.02, -0.05, 0.01], np.float32)
+    tvec = np.array([-0.4, 0.1, 0.3], np.float32)
+    got = tnative.render_frame(size, rvec, tvec, float(size), seed=2)
+    assert got.shape == (size, size) and got.std() > 0
+    np.testing.assert_array_equal(got, jax_native.render_frame(size, rvec, tvec, float(size),
+                                                               seed=2))
+
+
 def test_loader_close_is_idempotent_and_final():
     ld = tnative.FrameLoader(64, n_buffers=2, n_threads=2)
     assert ld.next_frame()[0] == 0
