@@ -20,8 +20,11 @@ over 120 rendered frames through the batched frontend, with archive loop
 closure, its steady step as CUDA graphs; and online serving: OdometryStream
 over the same features against run_odometry, and cli stream's loop from the
 host library's ring loader through the frontend and OdometryStream at three
-configurations) and checks their outputs against the port's per-frame,
-eager and CPU runs and against the truth of the synthetic scenes. Each phase prints one line; then a JSON line of the
+configurations; and the benchmark matrix through cli bench) and checks their
+outputs against the port's per-frame, eager and CPU runs, against the truth
+of the synthetic scenes and, for the bench records, against their floors in
+bench/roofline.py (which also gives every kernel's bound). Each phase prints
+one line (cli bench's records go before its line); then a JSON line of the
 kernels, the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits nonzero without that line. Imports nothing of
 JAX.
@@ -103,9 +106,6 @@ TV_NARROW = (400, 300, 400.0, (-3, -3, 6), (3, 3, 12), tuple(
 # points add is the MEDIAN error, which follows the winning minimal sample's
 # pose error: 0.85 px in a CPU run of this scene, held to 1.5.
 TV_MEDIAN_REPROJ_PX = 1.5
-# Published peaks of one H100 SXM: HBM bytes/s and fp32 FLOP/s outside the
-# tensor cores (every kernel here computes in fp32 on the CUDA cores).
-PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 FRONTEND_CONFIGS = ((512, 3, 512), (1024, 3, 2048))
 # The shapes each kernel is held to its plain version at: every (size, K)
 # a main path gives it. 256^2: the stream's README run (per-frame gather at
@@ -235,6 +235,14 @@ STREAM_FRAMES = 200
 # steady served frame, and its busy share of the timed frame.
 STREAM_PROFILED = 4
 STREAM_RUNS = (("a", 512, 0, False), ("b", 256, 6, True), ("c", 512, 8, True))
+# The bench phase: cli bench on the card (bench/suite.py's records), in two
+# calls: the pyramid workload at its own sizes (256, 512 and 1024^2, kernel 1
+# and the plain version), then frontend, matching and tracking at 256^2.
+# Every record must hold a finite value above 0, name this card (nvidia-smi's
+# name and power limit) and, where it has a share of the roofline, read at
+# most 100% of it: more means the floor is wrong.
+BENCH_RUNS = (("pyramid", None), ("frontend,matching,tracking", 256))
+BENCH_RECORDS = 12
 THR = 0.04 / 3          # detect.CONTRAST_THRESHOLD / S
 EDGE_RATIO = 10.0
 
@@ -456,14 +464,6 @@ def device_profile(torch, fn, *args, iters=10):
     from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
 
     return profile_device(fn, *args, warmup=1, iters=iters)[:2]
-
-
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    """The least ms the card could take: bytes over the memory rate or
-    operations over the fp32 rate, whichever is larger, and which it is."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
 
 
 def frame_ms(torch, fe, frames, passes=2):
@@ -1546,6 +1546,46 @@ def stream_phase(torch, dev, counters):
     return launches
 
 
+def bench_phase(torch, smi):
+    """``cli bench`` as a user runs it, its records checked and printed."""
+    import math
+
+    from sift_parallel_optimization_tpu_torch import cli
+
+    out_dir = os.path.join(HERE, "build")          # git-ignored, beside the kernels
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "bench_smoke.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    for workloads, size in BENCH_RUNS:
+        argv = ["bench", "--workloads", workloads, "--out", path]
+        check(cli.main(argv + (["--size", str(size)] if size else [])) == 0,
+              f"cli bench --workloads {workloads} failed")
+    seconds = time.perf_counter() - t0
+    with open(path) as fh:
+        recs = [json.loads(line) for line in fh]
+    check(len(recs) == BENCH_RECORDS, f"bench: {len(recs)} records, not {BENCH_RECORDS}")
+    for r in recs:
+        check(isinstance(r["value"], (int, float)) and math.isfinite(r["value"])
+              and r["value"] > 0, f"bench: {r['metric']} = {r['value']}")
+        check(r["device"] == smi and r["backend"] == "cuda",
+              f"bench: {r['metric']} names {r['device']!r} / {r['backend']!r}, not {smi!r}")
+        if "sol_pct" in r:
+            check(r["sol_pct"] is not None and 0 <= r["sol_pct"] <= 100,
+                  f"bench: {r['metric']} at {r['sol_pct']}% of its floor {r['floor_ms']} ms: "
+                  f"the floor is wrong")
+        print(json.dumps(r), flush=True)
+    head = next(r for r in recs if r["metric"] == "pyramid_dog_ms_per_frame_512"
+                and r["variant"] == "cuda")
+    phase("bench", f"{len(recs)} records in {seconds:.1f} s (printed above); headline "
+          f"pyramid_dog_ms_per_frame_512 (kernel 1) {head['value']} ms chained, "
+          f"{head['sol_pct']}% of {head['floor_ms']} ms, kernel alone {head['device_ms']} "
+          f"device ms; " + "; ".join(
+              f"{r['metric']}{' ' + r['variant'] if 'variant' in r else ''} {r['value']} "
+              f"{r['unit']}" for r in recs if r is not head))
+
+
 def sfm_cpu_phase(torch, dev):
     """SFM_CPU_FRAMES frames of the sfm scene through run_sfm on the card and
     on the CPU with the same draws (those of the card run, replayed); then
@@ -1672,6 +1712,8 @@ def main() -> int:
     try:
         import numpy as np
 
+        from sift_parallel_optimization_tpu_torch.bench import roofline as R
+        from sift_parallel_optimization_tpu_torch.config import num_octaves
         from sift_parallel_optimization_tpu_torch.core import pyramid_ref
         from sift_parallel_optimization_tpu_torch.models import descriptor
         from sift_parallel_optimization_tpu_torch.models.frontend import (
@@ -1696,6 +1738,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
+    peaks = R.device_peaks(dev)
 
     # 1. Device.
     phase("device", f"{torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
@@ -1801,7 +1844,9 @@ def main() -> int:
     # 4b. Kernel 3, both entry points, vs the plain versions on the card; the
     # block top-2 tables timed in the two forms the paths launch: one frame
     # (the per-frame frontend) and BATCH frames (the batched frontend).
+    t_k3 = time.perf_counter()
     k3_cases, k3_err, stacks, k3_flats = kernel3_checks(torch, st, dev)
+    t_k3 = [time.perf_counter() - t_k3, time.perf_counter()]
     k3_ms = {}
     for name in ("random 512x512", "random 1024x1024"):
         dog = stacks[name][0][0]
@@ -1812,12 +1857,17 @@ def main() -> int:
     for size, b in K3_TIMED:
         flat, shapes = k3_flats[size]
         args = (flat[:b], shapes, THR, EDGE_RATIO, 1)
+        # The plain version launches thousands of ops a call (a batch of 8:
+        # ~200 ms of host time), and the profiler takes seconds to read a run
+        # of them: it is timed over fewer calls than the kernel.
+        kernel, plain = dict(iters=20 if b == 1 else 5), dict(warmup=1, iters=5 if b == 1 else 2)
         k3_ms[f"block_top2 {size}^2 pyramid B={b}"] = tuple(
-            f(g, *args, iters=20 if b == 1 else 5)
+            f(g, *args, **kw)
             for f in (device_kernel_ms, cuda_time_ms)
-            for g in (st.score_block_top2_cuda, st.score_block_top2_plain))
+            for g, kw in ((st.score_block_top2_cuda, kernel), (st.score_block_top2_plain, plain)))
+    t_k3[1] = time.perf_counter() - t_k3[1]
     phase("kernel3", f"score_tables rows + block_top2 bitwise equal to plain in {k3_cases} "
-          f"cases, max_abs_err={k3_err:.3e} "
+          f"cases (checks {t_k3[0]:.0f} s, timing {t_k3[1]:.0f} s), max_abs_err={k3_err:.3e} "
           f"(random 512^2, 1024^2, 250x370 stacks and frontend "
           f"{', '.join(f'{n}^2' for n in K3_FRONTEND)} octaves, one frame a launch; the "
           f"{BATCH} frames of each frontend stream in one launch; "
@@ -1829,10 +1879,7 @@ def main() -> int:
     k4_ms, k4_err, k4_touched = {}, 0.0, {}
     for size, k in ((512, 512), (1024, 2048)):
         args = kernel4_inputs(torch, rng, k, frontend_atlas(torch, dev, size, 3), dev)
-        # Atlas bytes the kernel must read: each keypoint's sample footprint, a
-        # square of side 2 * max radius + 2, and no more than the atlas holds.
-        side = 2 * torch.ceil(args[3][:, 2:4].amax(dim=1)) + 2
-        k4_touched[k] = min(float((side * side).sum()) * 4, args[0].numel() * 4)
+        k4_touched[k] = R.resample_footprint_bytes(args[3], args[0].numel())
         got = gr.gather_resample_cuda(*args)
         want = gr.gather_resample_plain(*args)
         torch.cuda.synchronize()
@@ -1992,44 +2039,35 @@ def main() -> int:
             f"{name} {n}" for name, n in path_launches[path].items()))
     launches = {name: sum(c[name] for c in path_launches.values()) for name in counters}
 
-    # Bounds from this run's inputs: each input read once, each output written
-    # once, against the card's published peaks; for every shape timed above.
-    f4 = 4
+    # 9. The benchmark matrix through cli bench (after the counted runs: its
+    # captures count launches too).
+    bench_phase(torch, smi)
 
-    def pyramid_floats(n):          # S + 3 = 5 planes per octave, every octave
-        return sum(5 * (n >> o) ** 2 for o in range(n.bit_length()))
+    # Bounds from this run's inputs (bench/roofline.py's kernel models: each
+    # input read once, each output written once) against the card's
+    # published peaks; for every shape timed above.
+    def bound(model):
+        return model.kernel_bound(peaks)
 
-    def pyramid_bound(n):           # the image read, the planes written, ~4 flops per output
-        out = pyramid_floats(n)     # (two window products, a difference, the base)
-        return bound_ms(f4 * (n * n + out), 4 * out)
-
-    check(sum(o.numel() for o in pyr) == pyramid_floats(512), "bounds: pyramid size at 512")
-    k1_bound = pyramid_bound(512)
+    check(sum(o.numel() for o in pyr) == sum(
+        5 * (512 >> o) ** 2 for o in range(num_octaves(512))), "bounds: pyramid size at 512")
+    k1_bound = bound(R.reference_dog_kernel_model(512, 2))
 
     def gather_bound(n_patches, atlas_shape):
-        # Read: the patches' pixels, and no more than the atlases hold (patches
-        # overlap); the origins; written: every patch once.
-        patch = rows * cols * f4
-        read = min(n_patches * patch, int(np.prod(atlas_shape)) * f4)
-        return bound_ms(read + n_patches * (patch + 2 * 4), 0)
+        return bound(R.patch_gather_model(n_patches, rows, cols, int(np.prod(atlas_shape))))
 
-    def tables_bound(size, b):      # the DoG read, the tables written, ~130 flops a voxel
-        flat, shapes = k3_flats[size]
-        lay = st.table_layout(tuple(shapes))
-        out = sum(o.n * 12 + (o.vg * 4 if o.dense else 0) for o in lay)
-        return bound_ms(b * (f4 * flat.shape[1] + out), b * 130 * sum(o.vg for o in lay))
+    def tables_bound(size, b):
+        return bound(R.score_tables_model(k3_flats[size][1], b))
 
-    def rows_bound(dog):            # the DoG read, one (f32, int32) entry per 64-column span
-        planes, h, w = dog.shape
-        entries = (planes - 2) * (h - 2) * -(-(w - 2) // 64)
-        return bound_ms(f4 * dog.numel() + 8 * entries, 130 * (planes - 2) * (h - 2) * (w - 2))
+    def rows_bound(dog):
+        return bound(R.score_rows_model(*dog.shape))
 
-    def resample_bound(k):          # the footprints read, both grids written, ~16 flops a sample
-        grids = 18 * 18 + 26 * 26
-        return bound_ms(k4_touched[k] + k * (grids + 4 + 2) * f4, 16 * k * grids)
+    def resample_bound(k):
+        return bound(R.gather_resample_model(k, k4_touched[k]))
 
     bounds = {
-        **{f"reference_dog_pyramid {n}^2 S=2": pyramid_bound(n) for n in K1_TIMED},
+        **{f"reference_dog_pyramid {n}^2 S=2": bound(R.reference_dog_kernel_model(n, 2))
+           for n in K1_TIMED},
         **{f"patch_gather {size}^2 K={k}": gather_bound(k, k2_ms[size][4])
            for size, k in K2_CONFIGS},
         **{f"patch_gather_batched {size}^2 B={BATCH} K={k}": gather_bound(BATCH * k,
@@ -2042,8 +2080,8 @@ def main() -> int:
         "gather_resample K=512": resample_bound(512),
         "gather_resample K=2048": resample_bound(2048),
     }
-    phase("bounds", f"least ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s and "
-          f"{PEAK_FP32_FLOPS / 1e12:.0f} fp32 TFLOP/s: " + "; ".join(
+    phase("bounds", f"least ms at {peaks.hbm_gbps / 1e3:.2f} TB/s and "
+          f"{peaks.elementwise_tflops:.0f} fp32 TFLOP/s ({peaks.name}): " + "; ".join(
               f"{name}: {ms:.4f} ({by})" for name, (ms, by) in bounds.items())
           + f"; floor of any launch (a one-element zero_()): {launch_floor_ms:.4f} ms")
     k2_bound, k2b_bound = bounds["patch_gather 512^2 K=512"], bounds[

@@ -5,6 +5,7 @@
   python -m sift_parallel_optimization_tpu_torch.cli sfm --frames 6 --size 256 --device cuda
   python -m sift_parallel_optimization_tpu_torch.cli sfm --frames 40 --window 6 --loop-closure
   python -m sift_parallel_optimization_tpu_torch.cli stream --frames 200 --size 256 --window 6 --loop-closure
+  python -m sift_parallel_optimization_tpu_torch.cli bench --workloads pyramid,frontend --out bench.jsonl
 
 Defaults follow the JAX package's CLI (size 512, S=2, K=512; sfm: 6 frames
 of 256^2; stream: 200 frames of 512^2). With ``--device cuda`` and no GPU
@@ -30,6 +31,19 @@ def _device(name: str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available")
     return dev
+
+
+def _cmd_bench(args) -> int:
+    """The benchmark matrix (``bench/suite.run_suite``): JSONL records to
+    ``--out`` (appended) or stdout. ``--device cuda`` without a card raises
+    (``utils/device.resolve_device``)."""
+    from sift_parallel_optimization_tpu_torch.bench.suite import run_suite
+    from sift_parallel_optimization_tpu_torch.utils.profiling import MetricsWriter
+
+    chosen = {} if args.workloads is None else {"workloads": args.workloads.split(",")}
+    with MetricsWriter(args.out) as w:
+        run_suite(w, size=args.size, device=args.device, **chosen)
+    return 0
 
 
 def _load_image(args, device) -> torch.Tensor:
@@ -255,11 +269,12 @@ def upload_frame(frame: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def serve_stream(frames: int, size: int, max_keypoints: int = 512, seed: int = 0,
-                 window: int = 0, loop_closure: bool = False, device="cuda") -> dict:
+                 window: int = 0, loop_closure: bool = False, device="cuda",
+                 dual_orientation: bool | None = None) -> dict:
     """The serving loop of ``cli stream``: the host library's ring loader ->
-    ``SiftFrontend`` (dual orientations with a ``window``) -> with a
-    ``window``, ``OdometryStream.push``; one warm-up frame first, then
-    ``frames`` timed frames.
+    ``SiftFrontend`` (dual orientations with a ``window``, or as
+    ``dual_orientation`` says) -> with a ``window``, ``OdometryStream.push``;
+    one warm-up frame first, then ``frames`` timed frames.
 
     Frames go to the card from pinned memory without blocking, and the
     keypoint counts stay on the device until one read at the end, so the
@@ -274,8 +289,10 @@ def serve_stream(frames: int, size: int, max_keypoints: int = 512, seed: int = 0
     from sift_parallel_optimization_tpu_torch.utils import native
 
     dev = _device(str(device))
+    if dual_orientation is None:
+        dual_orientation = bool(window)
     fe = SiftFrontend(sift_config(size), max_keypoints=max_keypoints,
-                      dual_orientation=bool(window), device=dev)
+                      dual_orientation=dual_orientation, device=dev)
     stream = None
     if window:
         focal = float(size)
@@ -323,6 +340,16 @@ def _cmd_stream(args) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sift_parallel_optimization_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    b = sub.add_parser("bench", help="run the benchmark matrix")
+    b.add_argument("--workloads", default=None,
+                   help="comma-separated workloads (default: every one of bench/suite.WORKLOADS; "
+                        "'scaling' needs parallel/, not ported yet)")
+    b.add_argument("--out", default=None, help="JSONL path, appended to (default stdout)")
+    b.add_argument("--size", type=int, default=None,
+                   help="one frame side for every sized workload (default: each workload's "
+                        "own sizes)")
+    b.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    b.set_defaults(fn=_cmd_bench)
     for name, fn in (("pyramid", _cmd_pyramid), ("features", _cmd_features)):
         c = sub.add_parser(name)
         c.add_argument("--image", default=None, help="input PGM")

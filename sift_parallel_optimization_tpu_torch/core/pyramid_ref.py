@@ -43,8 +43,9 @@ def reference_filter_bank(
     s = torch.arange(n_scales, dtype=f32, device=device)
     sig = REF_SIGMA / (s + 1.0)
     x = i - (size - 1) / 2.0
-    # sqrt in f32 of the f32-rounded constant, as the JAX expression does.
-    root = torch.sqrt(torch.tensor(2.0 * REF_PI, dtype=f32, device=device))
+    # sqrt in f32 of the f32-rounded constant, as the JAX expression does
+    # (a fill, not a copy from the host, so a CUDA graph can capture it).
+    root = torch.sqrt(torch.full((), 2.0 * REF_PI, dtype=f32, device=device))
     f = torch.exp(-(x[None, :] ** 2) / (2.0 * sig[:, None] ** 2)) / (
         sig[:, None] * root
     )

@@ -211,8 +211,10 @@ def ransac_homography(
     err = ((_apply_h(h, p1) - p2) ** 2).sum(-1)                        # (N, K)
     inl = (err < threshold * threshold) & mask
     score = torch.where(h_ok, inl.sum(-1), -1)
-    best = torch.argmax(score)
-    h_best = _refine_homography(p1, p2, inl[best].to(torch.float32))
+    # A (1,) index: a 0-d tensor index reads it on the host, which a CUDA
+    # graph capture refuses.
+    best = torch.argmax(score).view(1)
+    h_best = _refine_homography(p1, p2, inl[best][0].to(torch.float32))
     # Re-score with the refined model (inlier set can only be cleaner).
     err_r = ((_apply_h(h_best, p1) - p2) ** 2).sum(-1)
     inl_r = (err_r < threshold * threshold) & mask

@@ -156,6 +156,7 @@ def chained_slope_ms(
     repeats: int = 4,
     median_of: int = 1,
     min_hi_total_ms: float | None = None,
+    info: dict | None = None,
 ) -> float:
     """Per-iteration ms of ``step`` (a tensor -> scalar function) from the
     slope between two chain lengths.
@@ -168,27 +169,41 @@ def chained_slope_ms(
     host's enqueue; on the CPU the chain runs eagerly. ``min_hi_total_ms``
     stretches both chains after a pilot run until the long one takes at
     least that long; ``median_of`` takes the median of that many slopes,
-    each from the best of ``repeats`` runs of either chain.
+    each from the best of ``repeats`` runs of either chain. ``info``, if
+    given, receives the chain lengths used (``"chain"``: [lo, hi], after
+    any stretch) and on the card the seconds spent capturing the graphs
+    (``"capture_s"``) and the measurement's peak device memory above what
+    was allocated when it began (``"peak_mib"``).
     """
     x = example.clone()
+    on_card = x.device.type == "cuda"
+    capture_s = 0.0
+    if on_card:
+        torch.cuda.synchronize(x.device)
+        torch.cuda.reset_peak_memory_stats(x.device)
+        base = torch.cuda.memory_allocated(x.device)
 
     def chain_of(n: int) -> Callable[[], torch.Tensor]:
+        nonlocal capture_s
+
         def chained():
             c = x
             for _ in range(n):
                 c = c + 1e-30 * step(c)
             return c.sum()
 
-        if x.device.type != "cuda":
+        if not on_card:
             return chained
         side = torch.cuda.Stream(x.device)
         side.wait_stream(torch.cuda.current_stream(x.device))
         with torch.cuda.stream(side):
-            chained()                               # warm the libraries' handles
+            step(x)                                 # warm the libraries' handles
         torch.cuda.current_stream(x.device).wait_stream(side)
+        t0 = time.perf_counter()
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             out = chained()
+        capture_s += time.perf_counter() - t0
 
         def replay():
             g.replay()
@@ -214,6 +229,11 @@ def chained_slope_ms(
     float(hi())
     slopes = sorted(max((total_ms(hi) - total_ms(lo)) / (chain_hi - chain_lo), 0.0)
                     for _ in range(max(median_of, 1)))
+    if info is not None:
+        info["chain"] = [chain_lo, chain_hi]
+        if on_card:
+            info["capture_s"] = capture_s
+            info["peak_mib"] = (torch.cuda.max_memory_allocated(x.device) - base) / 2**20
     return slopes[len(slopes) // 2]
 
 

@@ -45,7 +45,7 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     for name in ("models.frontend", "models.geometry", "models.ba", "models.matching",
                  "models.sfm", "models.odometry", "parallel.frontend", "utils.device",
-                 "utils.native", "utils.profiling", "cli"):
+                 "utils.native", "utils.profiling", "cli", "bench.roofline", "bench.suite"):
         assert f"sift_parallel_optimization_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
