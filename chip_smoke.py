@@ -23,8 +23,9 @@ host library's ring loader through the frontend and OdometryStream at three
 configurations; and the benchmark matrix through cli bench) and checks their
 outputs against the port's per-frame, eager and CPU runs, against the truth
 of the synthetic scenes and, for the bench records, against their floors in
-bench/roofline.py (which also gives every kernel's bound). Each phase prints
-one line (cli bench's records go before its line); then a JSON line of the
+bench/roofline.py (which also gives every kernel's bound). Every shape a
+kernel launches at in the run must be one its check held it at. Each phase
+prints one line (cli bench's records go before its line); then a JSON line of the
 kernels, the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits nonzero without that line. Imports nothing of
 JAX.
@@ -57,8 +58,9 @@ REPLACES_K4 = "sift_parallel_optimization_tpu/ops/descriptor_fused.py:138"
 # plain version's, op for op), at the headline size, the largest size of the
 # JAX package's pyramid workload, a size where the stores and not the launch
 # set the time, and sides that are no power of two (a ragged octave chain;
-# 500: only octave 0 keeps 16-byte rows; 768: down to side 12).
-K1_SIZES = (512, 1024, 4096, 1000, 500, 768)
+# 500: only octave 0 keeps 16-byte rows; 768: down to side 12); 256: the
+# smallest side of cli bench's pyramid workload.
+K1_SIZES = (256, 512, 1024, 4096, 1000, 500, 768)
 K1_TIMED = (512, 1024, 4096)
 # Headline vs the plain run on CPU tensors: exp of the window bank may
 # differ by an ulp between the CPU and CUDA math libraries.
@@ -109,9 +111,10 @@ TV_MEDIAN_REPROJ_PX = 1.5
 FRONTEND_CONFIGS = ((512, 3, 512), (1024, 3, 2048))
 # The shapes each kernel is held to its plain version at: every (size, K)
 # a main path gives it. 256^2: the stream's README run (per-frame gather at
-# K=512, one frame a score-table launch) and the odometry phase (batched
-# gather at K=256, 8 frames a launch).
-K2_CONFIGS = ((256, 512), (512, 512), (1024, 2048))
+# K=512, one frame a score-table launch), cli bench's tracking workload (its
+# frames' per-frame gather at K=256) and the odometry phase (batched gather
+# at K=256, 8 frames a launch).
+K2_CONFIGS = ((256, 256), (256, 512), (512, 512), (1024, 2048))
 K2B_CONFIGS = ((256, 256), (512, 512), (1024, 2048))
 K3_FRONTEND = (256, 512, 1024)
 K3_TIMED = ((256, 1), (512, 1), (512, 8), (1024, 1), (1024, 8))
@@ -132,7 +135,31 @@ PATH_KERNELS = {
     "batched 1024": ("patch_gather_batched", "score_tables"),
     "odometry": ("patch_gather_batched", "score_tables"),
     **{f"stream {name}": ("patch_gather", "score_tables") for name in "abc"},
+    "bench": ("reference_dog_pyramid", "patch_gather", "score_tables"),
 }
+# Every kernel entry point as (module of sift_parallel_optimization_tpu_torch.
+# ops, wrapper, name in the launch counts) with the arguments that make up
+# the shape of a launch. Over the whole run each wrapper notes the shapes it
+# launches at (LAUNCHED) and the checks note the shapes they held it to its
+# plain version at (HELD); a launch at a shape that no check held fails.
+SHAPED_WRAPPERS = (
+    ("scale_space", "reference_dog_pyramid_cuda", "reference_dog_pyramid",
+     lambda img, S, n_octaves=None: (tuple(img.shape), S, n_octaves)),
+    ("patch_gather", "extract_atlas_patches_cuda", "patch_gather",
+     lambda atlas, ys, xs, rows, cols: (tuple(atlas.shape), tuple(ys.shape), rows, cols)),
+    ("patch_gather", "extract_atlas_patches_batched_cuda", "patch_gather_batched",
+     lambda atlas, ys, xs, rows, cols: (tuple(atlas.shape), tuple(ys.shape), rows, cols)),
+    ("score_tables", "score_tables_rows_cuda", "score_tables rows",
+     lambda dog, thr, edge_ratio: (tuple(dog.shape),)),
+    ("score_tables", "score_block_top2_cuda", "score_tables",
+     lambda flat, shapes, thr, edge_ratio, refine_iters: (
+         tuple(flat.shape), tuple(tuple(sh) for sh in shapes), refine_iters)),
+    ("gather_resample", "gather_resample_cuda", "gather_resample",
+     lambda atlas, grow, x0, params: (tuple(atlas.shape), tuple(grow.shape),
+                                      tuple(params.shape))),
+)
+LAUNCHED: dict = {}
+HELD: dict = {}
 # The sfm phase: BASELINE.json configuration 4 ("incremental triangulation +
 # bundle adjustment on ~50 keyframes"), as `cli sfm` runs it (256 keypoints
 # a frame with dual orientations: 512 slots), on a seeded synthetic scene
@@ -237,7 +264,8 @@ STREAM_PROFILED = 4
 STREAM_RUNS = (("a", 512, 0, False), ("b", 256, 6, True), ("c", 512, 8, True))
 # The bench phase: cli bench on the card (bench/suite.py's records), in two
 # calls: the pyramid workload at its own sizes (256, 512 and 1024^2, kernel 1
-# and the plain version), then frontend, matching and tracking at 256^2.
+# and the plain version), then frontend, matching and tracking at 256^2; its
+# launches counted as a path of their own (PATH_KERNELS["bench"]).
 # Every record must hold a finite value above 0, name this card (nvidia-smi's
 # name and power limit) and, where it has a share of the roofline, read at
 # most 100% of it: more means the floor is wrong.
@@ -309,6 +337,7 @@ def kernel1_checks(torch, ss, dev):
             check(g.shape == w.shape, f"kernel 1: shape {tuple(g.shape)} at {n}")
             check(torch.equal(g, w),
                   f"kernel 1 not bitwise equal to plain at {n}: {max_err(got, want)}")
+        held("reference_dog_pyramid", img, 2)
         errs.append(max_err(got, want))
         if n in K1_TIMED:
             imgs[n] = img
@@ -427,6 +456,7 @@ def kernel3_checks(torch, st, dev):
             check(all(g.shape[0] == flat.shape[0] and same_bits(torch, g, w)
                       for g, w in zip(got, want)),
                   f"kernel 3 block top-2 not bitwise equal to plain on {name}, refine {refine}")
+            held("score_tables", flat, shapes, THR, EDGE_RATIO, refine)
             err = max(err, max_err(got, want))
             cases += 1
 
@@ -437,6 +467,7 @@ def kernel3_checks(torch, st, dev):
             torch.cuda.synchronize()
             check(all(same_bits(torch, g, w) for g, w in zip(got, want)),
                   f"kernel 3 rows not bitwise equal to plain on {name} {tuple(dog.shape[1:])}")
+            held("score_tables rows", dog[0], THR, EDGE_RATIO)
             err = max(err, max_err(got, want))
             cases += 1
         hold(*flat_frames(torch, dogs), f"{name}, {dogs[0].shape[0]} frame(s) in one launch")
@@ -477,6 +508,32 @@ def frame_ms(torch, fe, frames, passes=2):
             torch.cuda.synchronize()
             samples.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(samples)), max(samples), len(samples)
+
+
+def record_shapes():
+    """Wrap every kernel entry point so that it notes each launch's shape in
+    LAUNCHED. The dispatchers call the wrappers through their modules'
+    globals, so every path of the run goes through the note."""
+    import functools
+    import importlib
+
+    for module, attr, name, key in SHAPED_WRAPPERS:
+        mod = importlib.import_module(f"sift_parallel_optimization_tpu_torch.ops.{module}")
+        fn = getattr(mod, attr)
+
+        @functools.wraps(fn)
+        def noted(*args, _fn=fn, _name=name, _key=key, **kw):
+            LAUNCHED.setdefault(_name, set()).add(_key(*args, **kw))
+            return _fn(*args, **kw)
+
+        setattr(mod, attr, noted)
+
+
+def held(name, *args) -> None:
+    """Note that kernel ``name`` was held to its plain version at the shape
+    of ``args`` (the wrapper's arguments)."""
+    key = next(k for _m, _a, n, k in SHAPED_WRAPPERS if n == name)
+    HELD.setdefault(name, set()).add(key(*args))
 
 
 def counted(torch, counters, fn):
@@ -896,6 +953,7 @@ def sfm_phase(torch, dev):
     from sift_parallel_optimization_tpu_torch.models import ba, sfm
     from sift_parallel_optimization_tpu_torch.models.frontend import features_from_numpy
     from sift_parallel_optimization_tpu_torch.models.matching import match_descriptors
+    from sift_parallel_optimization_tpu_torch.utils.profiling import device_breakdown
 
     arrays, rv, tv, k_np = sfm_scene(SFM_FRAMES)
     feats = [features_from_numpy(a, device=dev) for a in arrays]
@@ -956,7 +1014,7 @@ def sfm_phase(torch, dev):
     }
     times = {name: call_times(torch, fn, iters=3, warmup=1, profiled=2)
              for name, fn in calls.items()}
-    top = top_kernels(torch, calls["mid BA (5 steps)"])
+    _ms, top = device_breakdown(calls["mid BA (5 steps)"], warmup=0, iters=1, top=6)
     pnp_ms = times["ransac_pnp"][0]
     share = pnp_calls * pnp_ms / 1e3 / run_s
     phase("sfm", f"run_sfm {n} keyframes, {B} landmarks/frame, {SFM_SLOTS} slots/frame, "
@@ -972,21 +1030,6 @@ def sfm_phase(torch, dev):
           + "; mid BA device time by kernel (ms/call, launches/call): " + "; ".join(
               f"{name[:60]} {ms:.3f} ({cnt})" for name, ms, cnt in top))
     return m
-
-
-def top_kernels(torch, fn, n_top=6):
-    """The device kernels that take most of ``fn()``'s device time, from one
-    profiled call (the profiler run's 64 spare one-element fills aside):
-    [(name, device ms, launches)]."""
-    from torch.autograd import DeviceType
-
-    from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
-
-    _ops, _ms, prof = profile_device(fn, warmup=0, iters=1)
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
-            and not e.key.startswith("sift.")]           # the profiler's own range
-    return sorted(rows, key=lambda r: -r[1])[:n_top]
 
 
 def pose_graph_scene(n, loop_span, loop_every, per_edge_scale=1.0, noise=0.0, seed=3):
@@ -1546,8 +1589,10 @@ def stream_phase(torch, dev, counters):
     return launches
 
 
-def bench_phase(torch, smi):
-    """``cli bench`` as a user runs it, its records checked and printed."""
+def bench_phase(torch, smi, counters):
+    """``cli bench`` as a user runs it, its records checked and printed.
+    Returns the launches of its runs (captured chains count each launch they
+    hold once, as the capture calls the wrapper; replays add nothing)."""
     import math
 
     from sift_parallel_optimization_tpu_torch import cli
@@ -1557,11 +1602,15 @@ def bench_phase(torch, smi):
     path = os.path.join(out_dir, "bench_smoke.jsonl")
     if os.path.exists(path):
         os.remove(path)
+
+    def run():
+        for workloads, size in BENCH_RUNS:
+            argv = ["bench", "--workloads", workloads, "--out", path]
+            check(cli.main(argv + (["--size", str(size)] if size else [])) == 0,
+                  f"cli bench --workloads {workloads} failed")
+
     t0 = time.perf_counter()
-    for workloads, size in BENCH_RUNS:
-        argv = ["bench", "--workloads", workloads, "--out", path]
-        check(cli.main(argv + (["--size", str(size)] if size else [])) == 0,
-              f"cli bench --workloads {workloads} failed")
+    _, launches = counted(torch, counters, run)
     seconds = time.perf_counter() - t0
     with open(path) as fh:
         recs = [json.loads(line) for line in fh]
@@ -1584,6 +1633,7 @@ def bench_phase(torch, smi):
           f"device ms; " + "; ".join(
               f"{r['metric']}{' ' + r['variant'] if 'variant' in r else ''} {r['value']} "
               f"{r['unit']}" for r in recs if r is not head))
+    return launches
 
 
 def sfm_cpu_phase(torch, dev):
@@ -1750,6 +1800,7 @@ def main() -> int:
     t0 = time.perf_counter()
     nvcc_s = _build.build(force=True)
     _build.load_kernels()
+    record_shapes()
     phase("build", f"nvcc {nvcc_s:.2f} s, build+load {time.perf_counter() - t0:.2f} s "
           f"-> {os.path.relpath(_build.LIB_PATH, HERE)}")
 
@@ -1783,25 +1834,26 @@ def main() -> int:
     for size, k in K2_CONFIGS:
         atlas = frontend_atlas(torch, dev, size, 3)
         ys, xs = gather_origins(torch, rng, k, atlas.shape[0], atlas.shape[1], rows, cols, dev)
-        k2_lib[size] = device_kernel_ms(gather_index_call(torch, atlas, ys, xs, rows, cols),
-                                     iters=50)
+        k2_lib[size, k] = device_kernel_ms(
+            gather_index_call(torch, atlas, ys, xs, rows, cols), iters=50)
         got = pg.extract_atlas_patches_cuda(atlas, ys, xs, rows, cols)
         want = pg.extract_atlas_patches_plain(atlas, ys, xs, rows, cols)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"kernel 2 not bitwise equal at {size}^2, K={k}")
+        held("patch_gather", atlas, ys, xs, rows, cols)
         k2_err = max(k2_err, float((got - want).abs().max()))
         args = (atlas, ys, xs, rows, cols)
-        k2_ms[size] = (
+        k2_ms[size, k] = (
             device_kernel_ms(pg.extract_atlas_patches_cuda, *args, iters=50),
             device_kernel_ms(pg.extract_atlas_patches_plain, *args, iters=50),
             cuda_time_ms(pg.extract_atlas_patches_cuda, *args, iters=50),
             cuda_time_ms(pg.extract_atlas_patches_plain, *args, iters=50),
-            tuple(atlas.shape), k,
+            tuple(atlas.shape),
         )
     phase("kernel2", "patch_gather 96x256 bitwise equal; " + "; ".join(
         f"{size}^2 K={k} atlas {a}: device kernel {m:.4f} ms, plain {p:.4f} ms, one indexing "
-        f"call {k2_lib[size]:.4f} ms; per call kernel {mc:.4f} ms, plain {pc:.4f} ms"
-        for size, (m, p, mc, pc, a, k) in k2_ms.items()))
+        f"call {k2_lib[size, k]:.4f} ms; per call kernel {mc:.4f} ms, plain {pc:.4f} ms"
+        for (size, k), (m, p, mc, pc, a) in k2_ms.items()))
 
     # 4a. The batched gather vs its plain version on the card, on the batched
     # frontend's own (B, R, C) atlases, plus one atlas shared by all frames
@@ -1821,6 +1873,7 @@ def main() -> int:
             torch.cuda.synchronize()
             check(got.shape == (BATCH, k, rows, cols) and torch.equal(got, want),
                   f"kernel 2b ({name} atlas) not bitwise equal at {size}^2, B={BATCH}, K={k}")
+            held("patch_gather_batched", atlas, ys, xs, rows, cols)
             k2b_err = max(k2b_err, float((got - want).abs().max()))
             k2b_cases += 1
             del got, want
@@ -1886,6 +1939,7 @@ def main() -> int:
         for g, w in zip(got, want):
             check(bool(torch.allclose(g, w, rtol=K4_RTOL, atol=K4_ATOL)),
                   f"kernel 4 disagrees with plain at K={k}: {max_err(got, want)}")
+        held("gather_resample", *args)
         k4_err = max(k4_err, max_err(got, want))
         k4_ms[k] = (
             device_kernel_ms(gr.gather_resample_cuda, *args, iters=50),
@@ -2024,6 +2078,10 @@ def main() -> int:
     sfm_phase(torch, dev)
     sfm_cpu_phase(torch, dev)
 
+    # 7f. The benchmark matrix through cli bench, its launches counted as
+    # its own.
+    path_launches["bench"] = bench_phase(torch, smi, counters)
+
     # 8. Each path of the main path went through its kernels; the batched
     # frontend launches each of its kernels ONCE for the whole batch.
     for path, kernels in PATH_KERNELS.items():
@@ -2039,9 +2097,13 @@ def main() -> int:
             f"{name} {n}" for name, n in path_launches[path].items()))
     launches = {name: sum(c[name] for c in path_launches.values()) for name in counters}
 
-    # 9. The benchmark matrix through cli bench (after the counted runs: its
-    # captures count launches too).
-    bench_phase(torch, smi)
+    # 9. Every shape a kernel launched at in this run was one a check held it
+    # to its plain version at.
+    for name in sorted(LAUNCHED):
+        missing = LAUNCHED[name] - HELD.get(name, set())
+        check(not missing, f"{name} launched at shapes no check held it at: {sorted(missing)}")
+    phase("shapes", "every launch at a shape held to the plain version: " + "; ".join(
+        f"{name} {len(LAUNCHED[name])} shapes" for name in sorted(LAUNCHED)))
 
     # Bounds from this run's inputs (bench/roofline.py's kernel models: each
     # input read once, each output written once) against the card's
@@ -2068,7 +2130,7 @@ def main() -> int:
     bounds = {
         **{f"reference_dog_pyramid {n}^2 S=2": bound(R.reference_dog_kernel_model(n, 2))
            for n in K1_TIMED},
-        **{f"patch_gather {size}^2 K={k}": gather_bound(k, k2_ms[size][4])
+        **{f"patch_gather {size}^2 K={k}": gather_bound(k, k2_ms[size, k][4])
            for size, k in K2_CONFIGS},
         **{f"patch_gather_batched {size}^2 B={BATCH} K={k}": gather_bound(BATCH * k,
                                                                         k2b_ms[size][5])
@@ -2088,7 +2150,7 @@ def main() -> int:
         f"patch_gather_batched 512^2 B={BATCH} K=512"]
     k3_bound = bounds["score_tables block_top2 512^2 B=1"]
     k4_bound = bounds["gather_resample K=512"]
-    m512, p512 = k2_ms[512][:2]
+    m512, p512 = k2_ms[512, 512][:2]
     mb, pb, _mc, _pc, libb = k2b_ms[512][:5]
     m3, p3 = k3_ms["block_top2 512^2 pyramid B=1"][:2]
     m4, p4 = k4_ms[512][:2]
@@ -2101,7 +2163,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("reference_dog_pyramid", SRC_K1, REPLACES_K1, k1_err, k1_ms, k1_plain_ms,
               k1_bound, None),
-        entry("patch_gather", SRC_K2, REPLACES_K2, k2_err, m512, p512, k2_bound, k2_lib[512]),
+        entry("patch_gather", SRC_K2, REPLACES_K2, k2_err, m512, p512, k2_bound, k2_lib[512, 512]),
         entry("patch_gather_batched", SRC_K2, REPLACES_K2B, k2b_err, mb, pb, k2b_bound, libb),
         entry("score_tables", SRC_K3, REPLACES_K3, k3_err, m3, p3, k3_bound, None),
         entry("gather_resample", SRC_K4, REPLACES_K4, k4_err, m4, p4, k4_bound, None),

@@ -56,8 +56,7 @@ from sift_parallel_optimization_tpu_torch.core.pyramid_ref import _octave_scale_
 class Peaks:
     name: str                     # torch.cuda.get_device_name of the part
     hbm_gbps: float               # HBM bandwidth, GB/s (both directions together)
-    matmul_f32_tflops: float      # fp32 matmul peak (no TF32)
-    matmul_default_tflops: float  # the products JAX runs at DEFAULT precision
+    matmul_f32_tflops: float      # fp32 matmul peak (no TF32): both matmul classes
     elementwise_tflops: float     # fp32 outside the tensor cores
     gather_bytes_per_elem: float  # DRAM bytes one gathered element moves
     link_gbps: float              # GPU-to-GPU link, GB/s each way
@@ -67,7 +66,6 @@ H100_SXM = Peaks(
     name="NVIDIA H100 80GB HBM3",
     hbm_gbps=3350.0,
     matmul_f32_tflops=67.0,
-    matmul_default_tflops=67.0,
     elementwise_tflops=67.0,
     gather_bytes_per_elem=32.0,
     link_gbps=450.0,
@@ -106,8 +104,8 @@ class CostModel:
         bw = peaks.hbm_gbps * 1e9
         return {
             "hbm": self.hbm_bytes / bw,
-            "matmul": self.matmul_f32_flops / (peaks.matmul_f32_tflops * 1e12)
-            + self.matmul_default_flops / (peaks.matmul_default_tflops * 1e12),
+            "matmul": (self.matmul_f32_flops + self.matmul_default_flops)
+            / (peaks.matmul_f32_tflops * 1e12),
             "elementwise": self.elementwise_flops / (peaks.elementwise_tflops * 1e12),
             "gather": self.gather_elems * peaks.gather_bytes_per_elem / bw,
         }

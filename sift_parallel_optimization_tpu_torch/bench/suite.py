@@ -22,10 +22,14 @@ and power limit as ``nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`` gives them, or ``cpu``) and ``backend`` (``cuda`` or
 ``cpu``); every chained record also ``chain`` ([short, long] chain
 lengths; replays for tracking), ``capture_s`` (seconds spent capturing
-graphs) and ``peak_mib`` (the measurement's peak device memory above what
-was allocated before it), None on the CPU; the pyramid records also ``device_ms``, the device time of one
-pyramid call alone from one ``profile_device`` run (the chain adds a
-reduction per octave and an update to every step). Floors and shares come
+graphs), ``peak_mib`` (the measurement's peak device memory above what
+was allocated before it) and ``sm_mhz`` ([least, most] SM clock that
+nvidia-smi sampled every 20 ms while the chains ran), None on the CPU;
+the pyramid records also ``device_ms``, the device time of one pyramid
+call alone from one ``profile_device`` run (the chain adds a reduction per
+octave and an update to every step); the tracking records ``device_ms``
+and ``device_top`` (the device time of a replayed frame and its costliest
+kernels, from the records ``profile_device`` counts). Floors and shares come
 from ``bench/roofline.py`` with the attached part's peaks; on the CPU they
 are None (``sol_pct``, ``bound``, ``floor_ms``).
 
@@ -51,7 +55,10 @@ from sift_parallel_optimization_tpu_torch.utils.device import resolve_device
 from sift_parallel_optimization_tpu_torch.utils.profiling import (
     MetricsWriter,
     chained_slope_ms,
+    device_breakdown,
     profile_device,
+    slope_ms,
+    sm_clock_samples,
 )
 
 WORKLOADS = ("pyramid", "frontend", "stages", "stream", "tracking", "matching", "ba", "matrix")
@@ -90,8 +97,9 @@ class _Records:
     def slope(self, step, example, **kw) -> tuple[float, dict]:
         """(chained slope ms, its chain fields for the record)."""
         info: dict = {}
-        ms = chained_slope_ms(step, example, info=info, **kw)
-        return ms, _chain_fields(info)
+        with sm_clock_samples(self.dev) as clock:
+            ms = chained_slope_ms(step, example, info=info, **kw)
+        return ms, _chain_fields({**info, **clock})
 
     def device_ms(self, fn, *args) -> float | None:
         if self.dev.type != "cuda":
@@ -102,7 +110,7 @@ class _Records:
 def _chain_fields(info: dict) -> dict:
     mib = info.get("peak_mib")
     return {"chain": info.get("chain"), "capture_s": _round(info.get("capture_s"), 3),
-            "peak_mib": _round(mib, 1)}
+            "peak_mib": _round(mib, 1), "sm_mhz": info.get("sm_mhz")}
 
 
 def _round(v, digits):
@@ -331,16 +339,19 @@ def bench_stream(writer: MetricsWriter, size: int = 512, frames: int = 200,
 def _replay_slope(runner, i: int, do_loop: bool, generator, lo: int = 4, hi: int = 16,
                   repeats: int = 4, min_hi_total_ms: float = 60.0) -> tuple[float, dict]:
     """ms a frame of ``runner``'s steady step at frame index ``i`` (BA on),
-    from the slope between runs of ``lo`` and ``hi`` frames, each the best
-    of ``repeats``. Every run starts from the same carry (restored on the
-    device, outside the graph), as every JAX chain starts from the same
-    map. On the card the first frame warms the step up, the second captures
-    it, and the timed frames replay the graph."""
+    from the slope between runs of ``lo`` and ``hi`` frames
+    (``utils/profiling.slope_ms``). Every run starts from the same carry and
+    the same generator state (both restored outside the graph), so every run
+    replays the same frames and draws, as every JAX chain starts from the
+    same map and key. On the card the first frame warms the step up, the
+    second captures it, and the timed frames replay the graph; then one
+    profiled run of three frames gives the device time a frame and its
+    kernels (``device_ms``, ``device_top``)."""
     from sift_parallel_optimization_tpu_torch.models.odometry import _clone, _tensors
 
     dev = runner.u.device
     on_card = dev.type == "cuda"
-    start = _clone(runner.carry)
+    start, draws = _clone(runner.carry), generator.get_state()
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -353,36 +364,42 @@ def _replay_slope(runner, i: int, do_loop: bool, generator, lo: int = 4, hi: int
     def restore():
         for dst, src in zip(_tensors(runner.carry), _tensors(start)):
             dst.copy_(src)
+        generator.set_state(draws)
+        sync()
 
-    runner.run(i, True, do_loop, generator=generator)    # eager warm-up (the card)
+    def frame():
+        runner.run(i, True, do_loop, generator=generator)
+
+    def run_of(n: int):
+        def run():
+            for _ in range(n):
+                frame()
+            sync()
+        return run
+
+    restore()
+    frame()                                   # eager warm-up (the card)
     sync()
     t0 = time.perf_counter()
-    runner.run(i, True, do_loop, generator=generator)    # capture + first replay (the card)
+    frame()                                   # capture + first replay (the card)
     sync()
     capture_s = time.perf_counter() - t0
-
-    def total_ms(n: int) -> float:
-        best = float("inf")
-        for _ in range(repeats):
-            restore()
-            sync()
-            t = time.perf_counter()
-            for _ in range(n):
-                runner.run(i, True, do_loop, generator=generator)
-            sync()
-            best = min(best, time.perf_counter() - t)
-        return best * 1e3
-
-    t_hi = total_ms(hi)
-    if t_hi < min_hi_total_ms:
-        scale = int(min_hi_total_ms / max(t_hi, 1e-3)) + 1
-        lo, hi = lo * scale, hi * scale
-    ms = max((total_ms(hi) - total_ms(lo)) / (hi - lo), 1e-6)
-    restore()
-    fields = {"chain": [lo, hi], "capture_s": round(capture_s, 3) if on_card else None,
+    with sm_clock_samples(dev) as clock:
+        ms, chain = slope_ms(run_of, lo, hi, repeats=repeats,
+                             min_hi_total_ms=min_hi_total_ms, before=restore)
+    fields = {"chain": chain, "capture_s": round(capture_s, 3) if on_card else None,
               "peak_mib": round((torch.cuda.max_memory_allocated(dev) - base) / 2**20, 1)
-              if on_card else None}
-    return ms, fields
+              if on_card else None, "sm_mhz": clock["sm_mhz"],
+              "device_ms": None, "device_top": None}
+    if on_card:
+        restore()
+        dev_ms, top = device_breakdown(frame, warmup=1, iters=3)
+        fields["device_ms"] = round(dev_ms, 4)
+        fields["device_top"] = [
+            [name.replace("void ", "").replace("at::native::", "")[:120], round(t, 4), n]
+            for name, t, n in top]
+    restore()
+    return max(ms, 1e-6), fields
 
 
 def bench_tracking(writer: MetricsWriter, size: int = 256, window: int = 6,

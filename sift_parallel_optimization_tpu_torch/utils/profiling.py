@@ -67,16 +67,10 @@ _LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset")
 _GRAPH_LAUNCH = "cudaGraphLaunch"
 
 
-def profile_device(fn: Callable[..., Any], *args, warmup: int = 3, iters: int = 20):
-    """(device ops per call, device ms per call, the finished profile) of
-    ``fn(*args)``: the device activity (kernels, copies, sets) of ``iters``
-    calls in one ``torch.profiler`` run, host enqueue time excluded. Raises
-    if the profiler keeps losing records of the timed calls.
-
-    Where the timed calls replay CUDA graphs, one host launch stands for
-    many device records, so they are not counted from the launches: the
-    records that count are those that start less than half a settling pause
-    before the marked host range (the timed calls start after such a pause)."""
+def _timed_device_events(fn: Callable[..., Any], *args, warmup: int, iters: int):
+    """(the device records of ``iters`` timed calls of ``fn(*args)``, the
+    finished profile), from one ``torch.profiler`` run (see
+    :func:`profile_device`). Raises if the profiler keeps losing records."""
     import time
 
     from torch.autograd import DeviceType
@@ -111,13 +105,72 @@ def profile_device(fn: Callable[..., Any], *args, warmup: int = 3, iters: int = 
             # time_range is in microseconds.
             timed = [e for e in device if e.time_range.start >= t0 - _SETTLE_S * 5e5]
             if len(timed) > launched:
-                return (len(timed) / iters, sum(e.device_time_total for e in timed) / 1e3 / iters,
-                        prof)
+                return timed, prof
         elif len(device) > launched:
-            timed = device[len(device) - launched:]
-            return launched / iters, sum(e.device_time_total for e in timed) / 1e3 / iters, prof
+            return device[len(device) - launched:], prof
     raise RuntimeError(f"the profiler kept {len(device)} device records of a run whose "
                        f"{iters} timed calls alone launched {launched}, {_ATTEMPTS} times over")
+
+
+def profile_device(fn: Callable[..., Any], *args, warmup: int = 3, iters: int = 20):
+    """(device ops per call, device ms per call, the finished profile) of
+    ``fn(*args)``: the device activity (kernels, copies, sets) of ``iters``
+    calls in one ``torch.profiler`` run, host enqueue time excluded. Raises
+    if the profiler keeps losing records of the timed calls.
+
+    Where the timed calls replay CUDA graphs, one host launch stands for
+    many device records, so they are not counted from the launches: the
+    records that count are those that start less than half a settling pause
+    before the marked host range (the timed calls start after such a pause)."""
+    timed, prof = _timed_device_events(fn, *args, warmup=warmup, iters=iters)
+    return len(timed) / iters, sum(e.device_time_total for e in timed) / 1e3 / iters, prof
+
+
+def device_breakdown(fn: Callable[..., Any], *args, warmup: int = 1, iters: int = 3,
+                     top: int = 8):
+    """(device ms per call, [[kernel name, device ms per call, launches per
+    call], ...] of the ``top`` names by device time) of ``fn(*args)``, from
+    the same records :func:`profile_device` counts (those of replayed CUDA
+    graphs included)."""
+    timed, _prof = _timed_device_events(fn, *args, warmup=warmup, iters=iters)
+    by_name: dict = {}
+    for e in timed:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return (sum(e.device_time_total for e in timed) / 1e3 / iters,
+            [[name, ms / iters, n / iters] for name, (ms, n) in rows])
+
+
+@contextlib.contextmanager
+def sm_clock_samples(device, every_ms: int = 20):
+    """Sample the card's SM clock (``nvidia-smi --query-gpu=clocks.sm``,
+    every ``every_ms`` ms, in a process of its own) while the block runs.
+    Yields a dict that gets ``"sm_mhz"``: [least, most] of the samples
+    (None on the CPU, or where the block ended before the first sample)."""
+    out: dict = {"sm_mhz": None}
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield out
+        return
+    import subprocess
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         f"--id={index}", "-lms", str(every_ms)],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield out
+    finally:
+        proc.terminate()
+        try:
+            text, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+    mhz = [int(v) for v in text.split() if v.isdigit()]
+    out["sm_mhz"] = [min(mhz), max(mhz)] if mhz else None
 
 
 def device_kernel_ms(fn: Callable[..., Any], *args, warmup: int = 3, iters: int = 20) -> float:
@@ -211,30 +264,60 @@ def chained_slope_ms(
 
         return replay
 
+    def run_of(n: int) -> Callable[[], None]:
+        run = chain_of(n)
+        return lambda: float(run())
+
+    ms, chain = slope_ms(run_of, chain_lo, chain_hi, repeats=repeats, median_of=median_of,
+                         min_hi_total_ms=min_hi_total_ms)
+    if info is not None:
+        info["chain"] = chain
+        if on_card:
+            info["capture_s"] = capture_s
+            info["peak_mib"] = (torch.cuda.max_memory_allocated(x.device) - base) / 2**20
+    return ms
+
+
+def slope_ms(
+    run_of: Callable[[int], Callable[[], None]],
+    lo: int,
+    hi: int,
+    repeats: int = 4,
+    median_of: int = 1,
+    min_hi_total_ms: float | None = None,
+    before: Callable[[], None] | None = None,
+) -> tuple[float, list[int]]:
+    """(ms a step, [lo, hi] as used) from the slope between a run of ``lo``
+    and one of ``hi`` steps: ``run_of(n)`` gives a callable that runs ``n``
+    steps and waits for them. Each run is the best of ``repeats``; the
+    slope the median of ``median_of``; ``min_hi_total_ms`` stretches both
+    lengths after a pilot run until the long one takes at least that long.
+    ``before``, if given, runs (untimed) before every timed run: where the
+    steps carry a state, it puts the state back."""
+
     def total_ms(run) -> float:
         best = float("inf")
         for _ in range(repeats):
+            if before is not None:
+                before()
             t0 = time.perf_counter()
-            float(run())
+            run()
             best = min(best, time.perf_counter() - t0)
         return best * 1e3
 
     if min_hi_total_ms is not None:
-        t = total_ms(chain_of(chain_hi))
+        t = total_ms(run_of(hi))
         if t < min_hi_total_ms:
             scale = int(min_hi_total_ms / max(t, 1e-3)) + 1
-            chain_lo, chain_hi = chain_lo * scale, chain_hi * scale
-    lo, hi = chain_of(chain_lo), chain_of(chain_hi)
-    float(lo())
-    float(hi())
-    slopes = sorted(max((total_ms(hi) - total_ms(lo)) / (chain_hi - chain_lo), 0.0)
+            lo, hi = lo * scale, hi * scale
+    run_lo, run_hi = run_of(lo), run_of(hi)
+    for run in (run_lo, run_hi):
+        if before is not None:
+            before()
+        run()
+    slopes = sorted(max((total_ms(run_hi) - total_ms(run_lo)) / (hi - lo), 0.0)
                     for _ in range(max(median_of, 1)))
-    if info is not None:
-        info["chain"] = [chain_lo, chain_hi]
-        if on_card:
-            info["capture_s"] = capture_s
-            info["peak_mib"] = (torch.cuda.max_memory_allocated(x.device) - base) / 2**20
-    return slopes[len(slopes) // 2]
+    return slopes[len(slopes) // 2], [lo, hi]
 
 
 @contextlib.contextmanager

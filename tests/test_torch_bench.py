@@ -12,7 +12,8 @@ JAX suite's source instead.
 
 The documented differences (``bench/suite.py``'s docstring): every port
 record adds ``device`` and ``backend``; a chained record adds ``chain``,
-``capture_s`` and ``peak_mib``; a pyramid record ``device_ms``; a stream
+``capture_s``, ``peak_mib`` and ``sm_mhz``; a pyramid record ``device_ms``; a
+tracking record ``device_ms`` and ``device_top``; a stream
 record ``chain`` (None: a wall, not a chain); the frame-batch records
 ``jax_path``; the pyramid variants ``cuda``/``plain`` stand for
 ``pallas``/``jnp``, the frame-batch path ``per_frame`` for ``vmap``; the
@@ -20,9 +21,11 @@ matrix has no ``blur_precision``, Pallas ``tile_rows`` or mesh-shape
 records."""
 
 import ast
+import collections
 import inspect
 import json
 import math
+import time
 
 import jax
 import jax.numpy as jnp
@@ -36,9 +39,10 @@ from sift_parallel_optimization_tpu_torch.bench import suite as tsuite
 from sift_parallel_optimization_tpu_torch.utils.profiling import MetricsWriter
 
 ADDED = {"device", "backend"}
-CHAINED = ADDED | {"chain", "capture_s", "peak_mib"}
+CHAINED = ADDED | {"chain", "capture_s", "peak_mib", "sm_mhz"}
 EXTRA = {"pyramid": CHAINED | {"device_ms"}, "frontend": CHAINED, "stages": CHAINED,
-         "matching": CHAINED, "ba": CHAINED, "matrix": CHAINED, "tracking": CHAINED,
+         "matching": CHAINED, "ba": CHAINED, "matrix": CHAINED,
+         "tracking": CHAINED | {"device_ms", "device_top"},
          "stream": ADDED | {"chain"}}
 VALUE_MAP = {("variant", "jnp"): "plain", ("variant", "pallas"): "cuda",
              ("path", "vmap"): "per_frame"}
@@ -86,7 +90,8 @@ def _port_stub(step, example, info=None, chain_lo=50, chain_hi=400, **kw):
 
 def _port_replay_stub(runner, i, do_loop, generator, **kw):
     runner.run(i, True, do_loop, generator=generator)
-    return 1.0, {"chain": [4, 16], "capture_s": None, "peak_mib": None}
+    return 1.0, {"chain": [4, 16], "capture_s": None, "peak_mib": None, "sm_mhz": None,
+                 "device_ms": None, "device_top": None}
 
 
 def _jax_stub(step, example, **kw):
@@ -127,7 +132,8 @@ def _check_port_records(workload, port):
     for r in port:
         assert r["device"] == "cpu" and r["backend"] == "cpu"
         assert isinstance(r["value"], (int, float)) and math.isfinite(r["value"])
-        for key in ("sol_pct", "floor_ms", "bound", "capture_s", "peak_mib", "device_ms"):
+        for key in ("sol_pct", "floor_ms", "bound", "capture_s", "peak_mib", "device_ms",
+                    "sm_mhz", "device_top"):
             assert r.get(key) is None, (key, r)   # no device peaks, no card numbers on the CPU
 
 
@@ -223,3 +229,59 @@ def test_chained_slope_ms_reports_the_chain_it_ran():
                      min_hi_total_ms=5.0, info=info)
     lo, hi = info["chain"]
     assert hi == 2 * lo and hi >= 4
+
+
+_Carry = collections.namedtuple("_Carry", "x inner")
+_Inner = collections.namedtuple("_Inner", "y none")
+
+
+class _DrawingRunner:
+    """A stand-in for ``SteadyStepRunner``: each frame draws from the
+    generator and adds the draw to its carry, and notes the carry and the
+    draw it started from."""
+
+    def __init__(self):
+        self.u = torch.zeros(1)
+        self.carry = _Carry(torch.zeros(3), _Inner(torch.ones(2), None))
+        self.seen = []
+
+    def run(self, i, do_ba, do_loop, generator=None):
+        draw = torch.rand(3, generator=generator)
+        self.seen.append((float(self.carry[0].sum()), draw))
+        self.carry[0].add_(draw)
+        self.carry[1][0].mul_(2.0)
+
+
+def test_replay_slope_restores_the_carry_and_the_draws():
+    """Every timed run starts from the carry AND the generator state the
+    measurement began with, so every run replays the same frames and draws;
+    the carry is put back at the end, and the CPU has no card fields."""
+    runner = _DrawingRunner()
+    gen = torch.Generator().manual_seed(0)
+    ms, fields = tsuite._replay_slope(runner, 2, False, gen, lo=1, hi=2, repeats=2,
+                                      min_hi_total_ms=0.0)
+    assert ms > 0 and fields["chain"] == [1, 2]
+    assert {k: fields[k] for k in ("capture_s", "peak_mib", "sm_mhz", "device_ms",
+                                   "device_top")} == dict.fromkeys(
+        ("capture_s", "peak_mib", "sm_mhz", "device_ms", "device_top"))
+    # Warm-up, capture, then each timed run (1 or 2 frames) from the start.
+    first = [(c, d) for c, d in runner.seen if c == 0.0]
+    assert len(first) >= 2 + 2 * 2
+    assert all(torch.equal(d, first[0][1]) for _c, d in first)
+    assert float(runner.carry[0].sum()) == 0.0 and torch.equal(runner.carry[1][0], torch.ones(2))
+
+
+def test_slope_ms_runs_before_every_timed_run():
+    """``slope_ms``: ``before`` precedes every run (warm and timed), the
+    pilot stretches both lengths, and the slope is never below 0."""
+    from sift_parallel_optimization_tpu_torch.utils.profiling import slope_ms
+
+    log = []
+    run_of = lambda n: (lambda: log.append(("run", n)))
+    ms, chain = slope_ms(run_of, 2, 4, repeats=2, before=lambda: log.append("before"))
+    assert ms >= 0 and chain == [2, 4]
+    assert log[0::2] == ["before"] * (len(log) // 2)
+    assert [e[1] for e in log[1::2]] == [2, 4, 4, 4, 2, 2]
+    _ms, chain = slope_ms(lambda n: (lambda: time.sleep(1e-4 * n)), 1, 2, repeats=1,
+                          min_hi_total_ms=5.0)
+    assert chain[1] == 2 * chain[0] and chain[1] > 2
