@@ -136,6 +136,7 @@ PATH_KERNELS = {
     "odometry": ("patch_gather_batched", "score_tables"),
     **{f"stream {name}": ("patch_gather", "score_tables") for name in "abc"},
     "bench": ("reference_dog_pyramid", "patch_gather", "score_tables"),
+    "mesh": ("patch_gather_batched", "score_tables"),
 }
 # Every kernel entry point as (module of sift_parallel_optimization_tpu_torch.
 # ops, wrapper, name in the launch counts) with the arguments that make up
@@ -269,6 +270,24 @@ STREAM_RUNS = (("a", 512, 0, False), ("b", 256, 6, True), ("c", 512, 8, True))
 # Every record must hold a finite value above 0, name this card (nvidia-smi's
 # name and power limit) and, where it has a share of the roofline, read at
 # most 100% of it: more means the floor is wrong.
+# The mesh phase: the distributed layer (parallel/) on a (1, 1) DeviceMesh
+# of a world-size-1 NCCL group on this card (NCCL refuses two ranks on one
+# device, so a mesh of n ranks needs n cards: torch.cuda.device_count();
+# the exchanges between ranks are held at 2 and 4 gloo ranks by the CPU
+# tests). Every sharded entry point against its unsharded counterpart on
+# the card: the three REFERENCE decompositions at 512^2 bitwise against
+# kernel 1's pyramid; the SIFT sharded pyramid at 512^2 and 1024^2 within
+# 1e-5 (band products over the halo against dense Toeplitz products); the
+# mesh frontend on the batched phase's 512^2 frames slot for slot as that
+# phase holds them (its launches counted as a path: kernels 3 and 2b once);
+# the ring table on the sfm phase's keyframes exactly; distributed BA, dense
+# and CG, 20 steps on the sfm_cpu phase's arc within 1e-4 of each field's
+# largest magnitude; distributed PGO on the pgo phase's 200-node SE(3)
+# graph (MESH_PGO_ITERS dense steps) and close_loops(mesh=) on the sfm
+# phase's map (its written loops, at their current poses) within 1e-4;
+# dryrun_multichip(1) finite. Then each pair's per-call ms between CUDA
+# events: the mesh layer's cost at world size 1.
+MESH_SIFT_ATOL, MESH_STATE_RTOL, MESH_POSE_ATOL, MESH_PGO_ITERS = 1e-5, 1e-4, 1e-4, 5
 BENCH_RUNS = (("pyramid", None), ("frontend,matching,tracking", 256))
 BENCH_RECORDS = 12
 THR = 0.04 / 3          # detect.CONTRAST_THRESHOLD / S
@@ -495,6 +514,27 @@ def device_profile(torch, fn, *args, iters=10):
     from sift_parallel_optimization_tpu_torch.utils.profiling import profile_device
 
     return profile_device(fn, *args, warmup=1, iters=iters)[:2]
+
+
+def flushed_kernel_ms(torch, fn, *args, iters=20):
+    """Median device ms of ``fn(*args)`` with the L2 flushed before each
+    call (a write of twice the L2's size between the calls, outside the
+    CUDA events around the call): what the call costs when its inputs come
+    from HBM and no earlier output lines wait in the L2."""
+    dev = args[0].device
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    scratch = torch.empty(max(2 * l2, 1 << 26) // 4, dtype=torch.float32, device=dev)
+    fn(*args)
+    pairs = []
+    for _ in range(iters):
+        scratch.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize(dev)
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
 def frame_ms(torch, fe, frames, passes=2):
@@ -1029,7 +1069,7 @@ def sfm_phase(torch, dev):
           f"{100 * share:.1f}% of the run; " + fmt_times(times)
           + "; mid BA device time by kernel (ms/call, launches/call): " + "; ".join(
               f"{name[:60]} {ms:.3f} ({cnt})" for name, ms, cnt in top))
-    return m
+    return m, feats, K
 
 
 def pose_graph_scene(n, loop_span, loop_every, per_edge_scale=1.0, noise=0.0, seed=3):
@@ -1636,13 +1676,41 @@ def bench_phase(torch, smi, counters):
     return launches
 
 
+def ba_arc(torch, dev, k_np):
+    """(start, observations, K) of the BA_FP_CAMS-camera arc on the card:
+    BA_FP_PTS points seen by every camera with 0.2 px noise, a perturbed
+    start."""
+    from sift_parallel_optimization_tpu_torch.models import ba
+    from sift_parallel_optimization_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(2)
+    C, P = BA_FP_CAMS, BA_FP_PTS
+    pts = rng.uniform((-2, -1.5, 5), (2, 1.5, 9), (P, 3))
+    rv = np.array([[0.0, 0.02 * (i - C / 2), 0.0] for i in range(C)])
+    tv = np.array([[0.15 * (i - C / 2), 0.0, 0.0] for i in range(C)])
+    kd = k_np.astype(np.float64)
+
+    def project(r, t):
+        pc = pts @ synthetic.rodrigues_np(r).T + t
+        return ((pc / pc[:, 2:]) @ kd.T)[:, :2]
+
+    uv = np.concatenate([project(rv[i], tv[i]) for i in range(C)])
+    uv += rng.normal(size=uv.shape) * 0.2
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    obs = ba.Observations(f32(np.repeat(np.arange(C), P)).int(), f32(np.tile(np.arange(P), C)).int(),
+                          f32(uv), torch.ones(C * P, dtype=torch.bool, device=dev))
+    start = ba.BAState(f32(rv + 0.005 * rng.normal(size=rv.shape)),
+                       f32(tv + 0.02 * rng.normal(size=tv.shape)),
+                       f32(pts + 0.03 * rng.normal(size=pts.shape)))
+    return start, obs, f32(k_np)
+
+
 def sfm_cpu_phase(torch, dev):
     """SFM_CPU_FRAMES frames of the sfm scene through run_sfm on the card and
     on the CPU with the same draws (those of the card run, replayed); then
     dense and CG bundle_adjust on one BA_FP_CAMS-camera map on the card."""
     from sift_parallel_optimization_tpu_torch.models import ba, sfm
     from sift_parallel_optimization_tpu_torch.models.frontend import features_from_numpy
-    from sift_parallel_optimization_tpu_torch.utils import synthetic
     from sift_parallel_optimization_tpu_torch.utils.trajectory import (
         camera_centers,
         umeyama_alignment,
@@ -1702,26 +1770,8 @@ def sfm_cpu_phase(torch, dev):
     check(abs(g_rms - c_rms) <= 0.01 * c_rms, f"sfm_cpu: RMS {g_rms:.4f} (card) vs {c_rms:.4f}")
 
     # Dense vs CG on one 20-camera map on the card.
-    rng = np.random.default_rng(2)
     C, P = BA_FP_CAMS, BA_FP_PTS
-    pts = rng.uniform((-2, -1.5, 5), (2, 1.5, 9), (P, 3))
-    rv = np.array([[0.0, 0.02 * (i - C / 2), 0.0] for i in range(C)])
-    tv = np.array([[0.15 * (i - C / 2), 0.0, 0.0] for i in range(C)])
-    kd = k_np.astype(np.float64)
-
-    def project(r, t):
-        pc = pts @ synthetic.rodrigues_np(r).T + t
-        return ((pc / pc[:, 2:]) @ kd.T)[:, :2]
-
-    uv = np.concatenate([project(rv[i], tv[i]) for i in range(C)])
-    uv += rng.normal(size=uv.shape) * 0.2
-    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-    obs = ba.Observations(f32(np.repeat(np.arange(C), P)).int(), f32(np.tile(np.arange(P), C)).int(),
-                          f32(uv), torch.ones(C * P, dtype=torch.bool, device=dev))
-    start = ba.BAState(f32(rv + 0.005 * rng.normal(size=rv.shape)),
-                       f32(tv + 0.02 * rng.normal(size=tv.shape)),
-                       f32(pts + 0.03 * rng.normal(size=pts.shape)))
-    K = f32(k_np)
+    start, obs, K = ba_arc(torch, dev, k_np)
     out = {s: ba.bundle_adjust(start, obs, K, n_iters=20, damping=1e-4, solver=s)
            for s in ("dense", "cg")}
     d, c = out["dense"], out["cg"]
@@ -1750,6 +1800,147 @@ def sfm_cpu_phase(torch, dev):
           f"Sim(3)-aligned structure within {gap:.2e} of its extent (gate {BA_FP_RTOL}), RMS "
           f"{rms['dense']:.4f} / {rms['cg']:.4f} px; bundle_adjust {C} cams x {P} pts, 20 "
           f"steps: dense {times['dense']:.3f} ms/call, cg {times['cg']:.3f} ms/call")
+    return start, obs, K
+
+
+def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
+    """The distributed layer at world size 1 under NCCL (see
+    MESH_SIFT_ATOL); returns the mesh frontend's launches."""
+    import torch.distributed as dist
+
+    from sift_parallel_optimization_tpu_torch.core.pyramid_ref import (
+        SiftPyramid,
+        reference_dog_pyramid,
+    )
+    from sift_parallel_optimization_tpu_torch.models import ba, loop_closure
+    from sift_parallel_optimization_tpu_torch.models import pose_graph as pg
+    from sift_parallel_optimization_tpu_torch.models.frontend import sift_config
+    from sift_parallel_optimization_tpu_torch.models.geometry import Camera
+    from sift_parallel_optimization_tpu_torch.parallel import ba as pba
+    from sift_parallel_optimization_tpu_torch.parallel import frontend as pfe
+    from sift_parallel_optimization_tpu_torch.parallel import matching as pm
+    from sift_parallel_optimization_tpu_torch.parallel import pose_graph as ppg
+    from sift_parallel_optimization_tpu_torch.parallel import scale_space as pss
+    from sift_parallel_optimization_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sift_parallel_optimization_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from sift_parallel_optimization_tpu_torch.utils.profiling import cuda_time_ms
+
+    t0 = time.perf_counter()
+    check(not dist.is_initialized(), "mesh: a process group exists before the phase")
+    initialize_distributed(device=dev)
+    try:
+        world, backend = dist.get_world_size(), dist.get_backend()
+        check(world == 1 and backend == "nccl", f"mesh: world {world} under {backend}")
+        mesh = make_mesh(1, 1)
+        full = lambda outs: [o.full_tensor() for o in outs]
+        img = frames["headline"]
+        want = reference_dog_pyramid(img, 2)
+        calls = {   # name: (sharded, unsharded)
+            "reference rows": (lambda: full(pss.sharded_reference_dog_pyramid(img, 2, mesh)),
+                               lambda: reference_dog_pyramid(img, 2)),
+            "reference octaves": (
+                lambda: full(pss.octave_sharded_reference_dog_pyramid(img, 2, mesh)),
+                lambda: reference_dog_pyramid(img, 2)),
+            "reference scales (octave 0)": (
+                lambda: [pss.scale_sharded_reference_dog_octave(mesh, 2, 512)(img).full_tensor()],
+                lambda: reference_dog_pyramid(img, 2, n_octaves=1)),
+        }
+        for name in list(calls):
+            got = calls[name][0]()
+            check(len(got) <= len(want) and all(same_bits(torch, g, w) for g, w in zip(got, want)),
+                  f"mesh: {name} not bitwise equal to kernel 1's pyramid")
+        sift_err = {}
+        for size in (512, 1024):
+            im, cfg = frames[size][0], sift_config(size)
+            spyr = pss.ShardedSiftPyramid(cfg, size, size, mesh, device=dev)
+            upyr = SiftPyramid(cfg, size, device=dev)
+            sift_err[size] = max_err(full(spyr(im)), upyr(im))
+            check(sift_err[size] <= MESH_SIFT_ATOL, f"mesh: SIFT {size}^2 {sift_err[size]:.3e}")
+            calls[f"SIFT pyramid {size}^2"] = (lambda s=spyr, x=im: full(s(x)),
+                                               lambda u=upyr, x=im: u(x))
+
+        batch = torch.stack(frames[512])
+        cfg = sift_config(512, S=3)
+        mesh_fe = lambda: pfe.gather_features(pfe.batched_extract_features(batch, cfg, 512,
+                                                                           mesh=mesh), mesh)
+        out, launches = counted(torch, counters, mesh_fe)
+        fracs = [compare_frames(torch, frame_of(out, i), frame_of(batched, i))
+                 for i in range(BATCH)]
+        check(min(f[0] for f in fracs) >= BATCH_SLOT_FRAC and min(f[1] for f in fracs)
+              >= DESC_FRAC, f"mesh: frontend differs from the batched one: {fracs}")
+        calls["frontend 512^2 B=8"] = (mesh_fe,
+                                       lambda: pfe.batched_extract_features(batch, cfg, 512))
+
+        m, feats, K = sfm_out
+        desc = torch.stack([f.descriptors for f in feats])
+        val = torch.stack([f.keypoints.valid for f in feats])
+        ring = pm.ring_pairwise_match_counts(mesh, desc, val)
+        check(torch.equal(ring, pm.pairwise_match_counts(desc, val)), "mesh: ring table differs")
+        calls[f"ring table {desc.shape[0]}x{desc.shape[1]}"] = (
+            lambda: pm.ring_pairwise_match_counts(mesh, desc, val),
+            lambda: pm.pairwise_match_counts(desc, val))
+
+        start, obs, k_arc = arc
+        ba_gap = {}
+        for solver in ("dense", "cg"):
+            kw = dict(n_iters=20, damping=1e-4, solver=solver)
+            d = pba.distributed_bundle_adjust(start, obs, k_arc, mesh, **kw)
+            u = ba.bundle_adjust(start, obs, k_arc, **kw)
+            ba_gap[solver] = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(d, u))
+            check(ba_gap[solver] <= MESH_STATE_RTOL, f"mesh: BA {solver} {ba_gap[solver]:.3e}")
+            calls[f"BA {solver} 20 steps"] = (
+                lambda kw=kw: pba.distributed_bundle_adjust(start, obs, k_arc, mesh, **kw),
+                lambda kw=kw: ba.bundle_adjust(start, obs, k_arc, **kw))
+
+        _gt, (er, et), edges = pose_graph_scene(PGO_NODES, PGO_NODES // 2, PGO_LOOP_EVERY,
+                                                noise=PGO_NOISE)
+        poses = pg.Poses(torch.from_numpy(er).to(dev), torch.from_numpy(et).to(dev))
+        e = pg.pose_graph_edges_from_numpy(
+            {f: edges[f] for f in ("i", "j", "rel_rvec", "rel_tvec", "weight")}, dev)
+        pgo_kw = dict(n_iters=MESH_PGO_ITERS, damping=1e-4)
+        pgo_gap = max_err(ppg.distributed_pgo(poses, e, mesh, **pgo_kw),
+                          pg.optimize_pose_graph(poses, e, solver="dense", **pgo_kw))
+        check(pgo_gap <= MESH_POSE_ATOL, f"mesh: PGO {pgo_gap:.3e}")
+        calls[f"PGO {PGO_NODES} nodes {MESH_PGO_ITERS} steps"] = (
+            lambda: ppg.distributed_pgo(poses, e, mesh, **pgo_kw),
+            lambda: pg.optimize_pose_graph(poses, e, solver="dense", **pgo_kw))
+
+        n, B = SFM_FRAMES, SFM_PTS_PER_FRAME
+        blocks = m.obs.valid[3 * n * B:].view(-1, B)
+        loop_frames = [int(m.obs.cam_idx[3 * n * B + b * B]) for b in range(blocks.shape[0])
+                       if bool(blocks[b].any())]
+        check(len(loop_frames) >= 1, "mesh: the sfm map holds no loop")
+        cams = [Camera(m.rvecs[f], m.tvecs[f]) for f in loop_frames]
+        closed = {mk: loop_closure.close_loops(m, n, loop_frames, cams, B, mesh=mv)
+                  for mk, mv in (("mesh", mesh), ("none", None))}
+        fields = lambda c: (c.rvecs, c.tvecs, c.points)
+        cl_gap = max_err(fields(closed["mesh"]), fields(closed["none"]))
+        check(cl_gap <= MESH_POSE_ATOL, f"mesh: close_loops {cl_gap:.3e}")
+        calls[f"close_loops {n} frames, {len(loop_frames)} loops"] = (
+            lambda: loop_closure.close_loops(m, n, loop_frames, cams, B, mesh=mesh),
+            lambda: loop_closure.close_loops(m, n, loop_frames, cams, B))
+
+        dry = dryrun_multichip(1, device=dev)
+        check(all(np.isfinite(v).all() for k, v in dry.items() if k != "mesh"),
+              f"mesh: dryrun {dry}")
+        checked_s = time.perf_counter() - t0
+        times = {name: (cuda_time_ms(a, warmup=1, iters=3), cuda_time_ms(b, warmup=1, iters=3))
+                 for name, (a, b) in calls.items()}
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "mesh: the group outlived the phase")
+    phase("mesh", f"world sizes run: 1 (torch.cuda.device_count() = "
+          f"{torch.cuda.device_count()}: NCCL takes one card a rank), backend nccl, mesh 1x1; "
+          f"REFERENCE rows / octaves / scales bitwise equal to kernel 1's pyramid at 512^2; SIFT "
+          f"sharded pyramid max abs diff 512^2 {sift_err[512]:.2e}, 1024^2 {sift_err[1024]:.2e} "
+          f"(atol {MESH_SIFT_ATOL}); frontend 512^2 B={BATCH}: slots equal "
+          f"{min(f[0] for f in fracs):.4f}, descriptors {min(f[1] for f in fracs):.4f}, "
+          f"launches {launches}; ring table equal; BA rel. gap dense {ba_gap['dense']:.2e}, cg "
+          f"{ba_gap['cg']:.2e}; PGO {pgo_gap:.2e}; close_loops ({len(loop_frames)} loops) "
+          f"{cl_gap:.2e}; dryrun {dry['mesh']} finite; checks {checked_s:.1f} s; per call ms, "
+          f"sharded / unsharded: " + "; ".join(f"{k} {a:.3f} / {b:.3f}"
+                                               for k, (a, b) in times.items()))
+    return launches
 
 
 def main() -> int:
@@ -1849,11 +2040,15 @@ def main() -> int:
             cuda_time_ms(pg.extract_atlas_patches_cuda, *args, iters=50),
             cuda_time_ms(pg.extract_atlas_patches_plain, *args, iters=50),
             tuple(atlas.shape),
+            R.patch_footprint_bytes(atlas.shape, ys, xs, rows, cols),
+            flushed_kernel_ms(torch, pg.extract_atlas_patches_cuda, *args),
         )
     phase("kernel2", "patch_gather 96x256 bitwise equal; " + "; ".join(
-        f"{size}^2 K={k} atlas {a}: device kernel {m:.4f} ms, plain {p:.4f} ms, one indexing "
-        f"call {k2_lib[size, k]:.4f} ms; per call kernel {mc:.4f} ms, plain {pc:.4f} ms"
-        for (size, k), (m, p, mc, pc, a) in k2_ms.items()))
+        f"{size}^2 K={k} atlas {a}: device kernel {m:.4f} ms (L2 flushed before each call "
+        f"{fl:.4f}), plain {p:.4f} ms, one indexing call {k2_lib[size, k]:.4f} ms; per call "
+        f"kernel {mc:.4f} ms, plain {pc:.4f} ms; windows cover {foot / 2**20:.2f} of "
+        f"{4 * np.prod(a) / 2**20:.2f} atlas MiB"
+        for (size, k), (m, p, mc, pc, a, foot, fl) in k2_ms.items()))
 
     # 4a. The batched gather vs its plain version on the card, on the batched
     # frontend's own (B, R, C) atlases, plus one atlas shared by all frames
@@ -1885,14 +2080,18 @@ def main() -> int:
             cuda_time_ms(pg.extract_atlas_patches_batched_plain, *args, iters=20),
             device_kernel_ms(gather_index_call(torch, *args), iters=20),
             tuple(atlases.shape), k,
+            R.patch_footprint_bytes(atlases.shape, ys, xs, rows, cols),
+            flushed_kernel_ms(torch, pg.extract_atlas_patches_batched_cuda, *args),
         )
         del atlases, batch
     phase("kernel2b", f"patch_gather_batched 96x256, B={BATCH}, bitwise equal in {k2b_cases} "
           f"cases (per-frame and shared atlas; last legal origin of the last frame, negative "
           f"and over-range origins in a middle frame); " + "; ".join(
-              f"{size}^2 K={k} atlases {a}: device kernel {m:.4f} ms, plain {p:.4f} ms, one "
-              f"indexing call {lib:.4f} ms; per call kernel {mc:.4f} ms, plain {pc:.4f} ms"
-              for size, (m, p, mc, pc, lib, a, k) in k2b_ms.items()))
+              f"{size}^2 K={k} atlases {a}: device kernel {m:.4f} ms (L2 flushed before each "
+              f"call {fl:.4f}), plain {p:.4f} ms, one indexing call {lib:.4f} ms; per call "
+              f"kernel {mc:.4f} ms, plain {pc:.4f} ms; windows cover {foot / 2**20:.2f} of "
+              f"{4 * np.prod(a) / 2**20:.2f} atlas MiB"
+              for size, (m, p, mc, pc, lib, a, k, foot, fl) in k2b_ms.items()))
 
     # 4b. Kernel 3, both entry points, vs the plain versions on the card; the
     # block top-2 tables timed in the two forms the paths launch: one frame
@@ -2075,8 +2274,15 @@ def main() -> int:
 
     # 7e. Incremental SfM with loop closure at configuration 4, and the same
     # driver on the card against the CPU.
-    sfm_phase(torch, dev)
-    sfm_cpu_phase(torch, dev)
+    sfm_out = sfm_phase(torch, dev)
+    arc = sfm_cpu_phase(torch, dev)
+
+    # 7e'. The distributed layer on a world-size-1 NCCL mesh, its frontend's
+    # launches counted as a path of their own.
+    path_launches["mesh"] = mesh_phase(torch, dev, counters, frames,
+                                       feats[f"batched {FRONTEND_CONFIGS[0][0]}"][1], sfm_out,
+                                       arc)
+    del sfm_out, arc
 
     # 7f. The benchmark matrix through cli bench, its launches counted as
     # its own.
@@ -2088,7 +2294,7 @@ def main() -> int:
         for name in kernels:
             check(path_launches[path][name] > 0,
                   f"{name} was not launched by the main path's {path} run")
-        if str(path).startswith("batched"):
+        if str(path).startswith("batched") or path == "mesh":
             got = {n: c for n, c in path_launches[path].items() if c}
             check(got == {"patch_gather_batched": 1, "score_tables": 1},
                   f"the {path} run launched {got}, not one launch of each kernel per batch")
@@ -2115,8 +2321,9 @@ def main() -> int:
         5 * (512 >> o) ** 2 for o in range(num_octaves(512))), "bounds: pyramid size at 512")
     k1_bound = bound(R.reference_dog_kernel_model(512, 2))
 
-    def gather_bound(n_patches, atlas_shape):
-        return bound(R.patch_gather_model(n_patches, rows, cols, int(np.prod(atlas_shape))))
+    def gather_bound(n_patches, atlas_shape, footprint):
+        return bound(R.patch_gather_model(n_patches, rows, cols, int(np.prod(atlas_shape)),
+                                          footprint))
 
     def tables_bound(size, b):
         return bound(R.score_tables_model(k3_flats[size][1], b))
@@ -2130,10 +2337,10 @@ def main() -> int:
     bounds = {
         **{f"reference_dog_pyramid {n}^2 S=2": bound(R.reference_dog_kernel_model(n, 2))
            for n in K1_TIMED},
-        **{f"patch_gather {size}^2 K={k}": gather_bound(k, k2_ms[size, k][4])
+        **{f"patch_gather {size}^2 K={k}": gather_bound(k, *k2_ms[size, k][4:6])
            for size, k in K2_CONFIGS},
-        **{f"patch_gather_batched {size}^2 B={BATCH} K={k}": gather_bound(BATCH * k,
-                                                                        k2b_ms[size][5])
+        **{f"patch_gather_batched {size}^2 B={BATCH} K={k}": gather_bound(
+            BATCH * k, k2b_ms[size][5], k2b_ms[size][7])
            for size, k in K2B_CONFIGS},
         **{f"score_tables block_top2 {size}^2 B={b}": tables_bound(size, b)
            for size, b in K3_TIMED},

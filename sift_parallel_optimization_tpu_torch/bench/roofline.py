@@ -366,12 +366,42 @@ def reference_dog_kernel_model(n: int, S: int) -> CostModel:
                      note=f"reference_dog kernel {n}^2 S={S}")
 
 
-def patch_gather_model(n_patches: int, rows: int, cols: int, atlas_numel: int) -> CostModel:
-    """Kernel 2a / 2b (``csrc/patch_gather.cu``): the patches' pixels read,
-    no more than the atlases hold (patches overlap), two int32 origins a
-    patch, every f32 patch written once."""
+def patch_footprint_bytes(atlas_shape, ys: torch.Tensor, xs: torch.Tensor, rows: int,
+                          cols: int) -> float:
+    """Atlas bytes kernel 2a / 2b must read for these origins: the union of
+    the (rows, cols) windows, each origin normalised as the kernel does
+    (``ops/patch_gather._normalise``), counted per frame of a (B, R, C)
+    atlas stack ((B, K) origins) or over one shared (R, C) atlas. Windows
+    overlap (keypoints cluster) and leave parts of the atlas unread, so
+    this is what the call's data needs, not the atlas size."""
+    from sift_parallel_optimization_tpu_torch.ops.patch_gather import _normalise
+
+    r, c = atlas_shape[-2:]
+    y0, x0 = _normalise(ys, xs, r, c, rows, cols)
+    y0, x0 = y0.reshape(-1, y0.shape[-1]), x0.reshape(-1, x0.shape[-1])
+    frames = y0.shape[0] if len(atlas_shape) == 3 else 1
+    y0, x0 = y0.reshape(frames, -1), x0.reshape(frames, -1)
+    # Rectangles painted into a difference array, summed up: covered > 0.
+    diff = torch.zeros((frames, r + 1, c + 1), dtype=torch.int32, device=ys.device)
+    f = torch.arange(frames, device=ys.device)[:, None].expand_as(y0)
+    one = torch.ones_like(y0, dtype=torch.int32)
+    for dy, dx, sign in ((0, 0, 1), (rows, 0, -1), (0, cols, -1), (rows, cols, 1)):
+        diff.index_put_((f, y0 + dy, x0 + dx), sign * one, accumulate=True)
+    covered = diff.cumsum(1).cumsum(2)[:, :r, :c] > 0
+    return float(covered.sum()) * 4.0
+
+
+def patch_gather_model(n_patches: int, rows: int, cols: int, atlas_numel: int,
+                       footprint_bytes: float | None = None) -> CostModel:
+    """Kernel 2a / 2b (``csrc/patch_gather.cu``): the atlas pixels the
+    windows cover read once (``footprint_bytes``, from
+    :func:`patch_footprint_bytes`; without it, the patches' pixels up to
+    the atlas size), two int32 origins a patch, every f32 patch written
+    once."""
     patch = rows * cols * 4.0
     read = min(n_patches * patch, atlas_numel * 4.0)
+    if footprint_bytes is not None:
+        read = min(read, footprint_bytes)
     return CostModel(hbm_bytes=read + n_patches * (patch + 2 * 4.0),
                      note=f"patch gather {n_patches} x {rows}x{cols}")
 
@@ -419,9 +449,8 @@ def gather_resample_model(k: int, footprint_bytes: float) -> CostModel:
 
 
 # ---------------------------------------------------------------------------
-# Link cost model: per-device bytes of each sharded op, and the scaling
-# they project. Projections, not measurements: the port's sharded paths
-# (parallel/ on torch.distributed) are not written yet.
+# Link cost model: per-device bytes of each sharded op (parallel/ on
+# torch.distributed), and the scaling they project (bench/scaling.py).
 # ---------------------------------------------------------------------------
 
 

@@ -14,8 +14,9 @@ is a wall over its frames, host included, as in JAX.
 Workloads: ``pyramid`` (REFERENCE pyramid+DoG; variants ``cuda``, kernel 1,
 and ``plain``, the plain PyTorch version on the same device, in place of
 JAX's ``pallas`` and ``jnp``), ``frontend``, ``stages``, ``stream``,
-``tracking``, ``matching``, ``ba``, ``matrix``. ``scaling`` raises: it needs
-the sharded pyramid of ``parallel/``, which the port has not written yet.
+``tracking``, ``matching``, ``ba``, ``matrix``, ``scaling``
+(``bench/scaling.py``: rank groups of the data-parallel frontend, and the
+sharded pyramid's link bytes).
 
 Every record has the JAX record's fields plus ``device`` (the card's name
 and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -33,13 +34,16 @@ kernels, from the records ``profile_device`` counts). Floors and shares come
 from ``bench/roofline.py`` with the attached part's peaks; on the CPU they
 are None (``sol_pct``, ``bound``, ``floor_ms``).
 
-Three sweeps of the JAX ``bench_matrix`` have no record here: the Pallas
-``tile_rows`` sweep (JAX runs it only on a TPU; kernel 1 has no such knob),
-``blur_precision="high"`` (the port refuses it by design: every blur is
-full fp32, ``config.PyramidConfig``) and the mesh-shape sweep (it needs
-``parallel/``). The frame-batch sweep's ``per_frame`` path, a loop of
-``SiftFrontend`` calls, is the port's form of JAX's ``vmap`` path (each
-record says so in ``jax_path``).
+Two sweeps of the JAX ``bench_matrix`` have no record here: the Pallas
+``tile_rows`` sweep (JAX runs it only on a TPU; kernel 1 has no such knob)
+and ``blur_precision="high"`` (the port refuses it by design: every blur is
+full fp32, ``config.PyramidConfig``). The frame-batch sweep's ``per_frame``
+path, a loop of ``SiftFrontend`` calls, is the port's form of JAX's ``vmap``
+path (each record says so in ``jax_path``). The mesh-shape sweep runs over
+every (data, spatial) factorization of the default process group's world
+size (one process: 1x1, the group formed and destroyed by the sweep);
+where the sharded pyramid's NCCL calls refuse a graph capture, its record
+is timed eagerly between CUDA events and ``chain`` says so.
 """
 
 from __future__ import annotations
@@ -55,13 +59,15 @@ from sift_parallel_optimization_tpu_torch.utils.device import resolve_device
 from sift_parallel_optimization_tpu_torch.utils.profiling import (
     MetricsWriter,
     chained_slope_ms,
+    cuda_time_ms,
     device_breakdown,
     profile_device,
     slope_ms,
     sm_clock_samples,
 )
 
-WORKLOADS = ("pyramid", "frontend", "stages", "stream", "tracking", "matching", "ba", "matrix")
+WORKLOADS = ("pyramid", "frontend", "stages", "stream", "tracking", "matching", "ba", "matrix",
+             "scaling")
 
 
 def device_label(dev: torch.device) -> str:
@@ -505,8 +511,9 @@ def bench_matrix(writer: MetricsWriter, size: int = 512, device="cuda", **kw) ->
     ``parallel/frontend.batched_extract_features`` with its matrices held:
     kernels 3 and 2b once a batch) and ``per_frame`` (B calls of the
     frontend on (H, W): kernels 3 and 2a once a frame, the port's form of
-    JAX's ``vmap`` path). The module docstring lists the JAX sweeps that
-    have no record here."""
+    JAX's ``vmap`` path); then the sharded SIFT pyramid on every mesh shape
+    of the world size. The module docstring lists the JAX sweeps that have
+    no record here."""
     from sift_parallel_optimization_tpu_torch.core.pyramid_ref import SiftPyramid
     from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
 
@@ -541,6 +548,49 @@ def bench_matrix(writer: MetricsWriter, size: int = 512, device="cuda", **kw) ->
             ms, chain = rec.slope(fn, frames, chain_lo=10, chain_hi=40)
             rec.write(f"matrix_frontend_batched_ms_per_frame_{bsize}", round(ms / batch, 4),
                       "ms", batch=batch, path=path, jax_path=jax_path, **chain)
+    _mesh_sweep(rec, img, size)
+
+
+def _mesh_sweep(rec: _Records, img: torch.Tensor, size: int) -> None:
+    """The sharded SIFT pyramid on every (data, spatial) factorization of
+    the world size, under the default process group (formed here for one
+    process, and destroyed after, if none exists)."""
+    import torch.distributed as dist
+
+    from sift_parallel_optimization_tpu_torch.models.frontend import sift_config
+    from sift_parallel_optimization_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+    )
+    from sift_parallel_optimization_tpu_torch.parallel.scale_space import ShardedSiftPyramid
+
+    formed = not dist.is_initialized()
+    initialize_distributed(device=rec.dev)
+    try:
+        n = dist.get_world_size()
+        for n_data in (d for d in (1, 2, 4, 8, 16) if d <= n and n % d == 0):
+            mesh = make_mesh(n_data, n // n_data)
+            pyr = ShardedSiftPyramid(sift_config(size), size, size, mesh, device=rec.dev)
+
+            def step(x, pyr=pyr):
+                return sum(o.to_local().sum() for o in pyr(x))
+
+            try:
+                ms, chain = rec.slope(step, img)
+            except RuntimeError as e:
+                if rec.dev.type != "cuda":
+                    raise
+                # The NCCL calls refused the graph capture: per call between
+                # CUDA events (host enqueue included), and the record says so.
+                torch.cuda.synchronize(rec.dev)
+                ms = cuda_time_ms(step, img, warmup=3, iters=20)
+                chain = _chain_fields({"chain": f"eager: graph capture refused "
+                                                f"({type(e).__name__}: {str(e)[:80]})"})
+            rec.write(f"matrix_mesh_shape_pyramid_ms_{size}", round(ms, 4), "ms",
+                      mesh=f"{n_data}x{n // n_data}", **chain)
+    finally:
+        if formed:
+            dist.destroy_process_group()
 
 
 def run_suite(writer: MetricsWriter, workloads=WORKLOADS, size: int | None = None,
@@ -548,15 +598,11 @@ def run_suite(writer: MetricsWriter, workloads=WORKLOADS, size: int | None = Non
     """Run ``workloads`` in the JAX suite's order. ``size``, if given, is the
     one frame side of every sized workload (default: each workload's own
     sizes: pyramid 256/512/1024, frontend 256/512, tracking 256 and 512,
-    stages / stream / matrix 512). ``kw`` goes to every workload
+    stages / stream / matrix 512, scaling 256). ``kw`` goes to every workload
     (``device``: "cuda" by default)."""
-    unknown = [w for w in workloads if w not in WORKLOADS and w != "scaling"]
+    unknown = [w for w in workloads if w not in WORKLOADS]
     if unknown:
         raise ValueError(f"unknown workloads {unknown}; choose from {', '.join(WORKLOADS)}")
-    if "scaling" in workloads:
-        raise NotImplementedError(
-            "bench scaling needs the sharded pyramid of the parallel/ slice (parallel/mesh.py, "
-            "parallel/scale_space.py on torch.distributed), which the port has not written yet")
     sized = {} if size is None else {"size": size, "sizes": (size,)}
     if "pyramid" in workloads:
         bench_pyramid(writer, **sized, **kw)
@@ -577,3 +623,7 @@ def run_suite(writer: MetricsWriter, workloads=WORKLOADS, size: int | None = Non
         bench_ba(writer, **kw)
     if "matrix" in workloads:
         bench_matrix(writer, **sized, **kw)
+    if "scaling" in workloads:
+        from sift_parallel_optimization_tpu_torch.bench.scaling import bench_scaling
+
+        bench_scaling(writer, **sized, **kw)

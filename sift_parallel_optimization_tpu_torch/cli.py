@@ -342,8 +342,8 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     b = sub.add_parser("bench", help="run the benchmark matrix")
     b.add_argument("--workloads", default=None,
-                   help="comma-separated workloads (default: every one of bench/suite.WORKLOADS; "
-                        "'scaling' needs parallel/, not ported yet)")
+                   help="comma-separated workloads (default: every one of bench/suite.WORKLOADS, "
+                        "scaling included)")
     b.add_argument("--out", default=None, help="JSONL path, appended to (default stdout)")
     b.add_argument("--size", type=int, default=None,
                    help="one frame side for every sized workload (default: each workload's "

@@ -251,6 +251,54 @@ def _select_from_tables(vals, idx, score, st: dict, k: int):
     return top, torch.gather(idx, -1, sel)
 
 
+def _tail_canvas(shapes: tuple, tail: int, device) -> dict:
+    """Per-octave metadata of the exact branch when octaves ``tail:`` share
+    one zero-padded canvas (the JAX package's ``tail_batch_side`` group):
+    the canvas members' flat score bases step by a canvas' interior, their
+    strides are the canvas' and their hop limits their own interiors. The
+    big octaves keep :func:`_static`'s values. Built once a (shapes, tail,
+    device)."""
+    key = ("tail", shapes, tail, str(device))
+    if key in _STATIC:
+        return _STATIC[key]
+    big, members = shapes[:tail], shapes[tail:]
+    ds2 = shapes[0][0]
+    hp, wp = max(h for _, h, _w in members), max(w for _, _h, w in members)
+    base = sum((p - 2) * (h - 2) * (w - 2) for p, h, w in big)
+    dog = sum(p * h * w for p, h, w in big)
+    v = (ds2 - 2) * (hp - 2) * (wp - 2)
+    rows = [(sum((p - 2) * (h - 2) * (w - 2) for p, h, w in big[:o]),
+             h - 2, w - 2, sum(p * hh * ww for p, hh, ww in big[:o]), h - 3, w - 3)
+            for o, (p, h, w) in enumerate(big)]
+    rows += [(base + j * v, hp - 2, wp - 2, dog + j * ds2 * hp * wp, h - 3, w - 3)
+             for j, (_p, h, w) in enumerate(members)]
+    cols = list(zip(*rows))
+    meta = {name: torch.tensor(c, dtype=torch.int64, device=device)
+            for name, c in zip(("base", "hs", "ws", "gstart", "ly", "lx"), cols)}
+    meta.update(canvas=(hp, wp), n_total=base + len(members) * v,
+                inside=[(h - 2, w - 2) for _p, h, w in members])
+    _STATIC[key] = meta
+    return meta
+
+
+def _tail_scores(dogs: list[torch.Tensor], meta: dict, thr: float, edge_ratio: float,
+                 refine_iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The canvas group: (B, n_g * (S) * (hp-2) * (wp-2)) dense scores with
+    the padded voxels zeroed, and its (B, n_g * (S+2) * hp * wp) flat DoG."""
+    hp, wp = meta["canvas"]
+    b, ds2 = dogs[0].shape[:2]
+    stack = torch.stack([torch.nn.functional.pad(d.to(torch.float32),
+                                                 (0, wp - d.shape[3], 0, hp - d.shape[2]))
+                         for d in dogs], dim=1)                    # (B, n_g, S+2, hp, wp)
+    score = dense_score(stack.reshape(-1, ds2, hp, wp), thr, edge_ratio, refine_iters)
+    score = score.reshape(b, len(dogs), *score.shape[1:])          # (B, n_g, S, hp-2, wp-2)
+    iy = torch.arange(hp - 2, device=score.device)
+    ix = torch.arange(wp - 2, device=score.device)
+    inside = torch.stack([(iy[:, None] < h) & (ix[None, :] < w) for h, w in meta["inside"]])
+    score = torch.where(inside[None, :, None], score, torch.zeros_like(score))
+    return score.reshape(b, -1), stack.reshape(b, -1)
+
+
 def detect_pyramid_batched(
     dogs: list[torch.Tensor],
     cfg: PyramidConfig,
@@ -260,6 +308,7 @@ def detect_pyramid_batched(
     refine_iters: int = 1,
     use_approx_topk: bool | None = None,
     adaptive_hop: bool = False,
+    tail_batch_side: int | None = None,
 ) -> Keypoints:
     """One (B, S+2, H_o, W_o) DoG tensor per octave -> Keypoints with a
     leading (B,) axis: ``max_keypoints`` slots per frame, shared across the
@@ -270,8 +319,13 @@ def detect_pyramid_batched(
     means the block-reduce branch on a CUDA tensor and the exact one on the
     CPU. ``adaptive_hop`` adds one more hop-and-refit round for candidates
     whose last fit still escapes the trust region; converged candidates keep
-    their values (computed for all, then selected: no host sync). The JAX
-    package's ``tail_batch_side`` padded-canvas grouping is not ported.
+    their values (computed for all, then selected: no host sync).
+
+    ``tail_batch_side``: octaves whose longest side is at most this share
+    one zero-padded canvas group, scored on the canvas with its padded
+    voxels masked out (the JAX package's study knob, off by default there
+    too); exact branch only. The selection is the native one's but for ties,
+    which the canvas' flat order breaks as the JAX package's does.
     """
     device = dogs[0].device
     b, ds2 = dogs[0].shape[:2]
@@ -281,11 +335,21 @@ def detect_pyramid_batched(
         use_approx_topk = device.type == "cuda"
     use_hops = use_approx_topk and refine_iters >= 1
     shapes = tuple(tuple(d.shape[1:]) for d in dogs)
-    n_total = sum((p - 2) * (h - 2) * (w - 2) for p, h, w in shapes)
-    k = min(max_keypoints, n_total)
+    tail = next((o for o, (_p, h, w) in enumerate(shapes)
+                 if tail_batch_side is not None and max(h, w) <= tail_batch_side), len(shapes))
+    if any(max(h, w) > tail_batch_side for _p, h, w in shapes[tail:]):
+        raise ValueError("tail_batch_side: the octaves that share the canvas must be the last")
+    if tail < len(shapes) and use_approx_topk:
+        raise ValueError("tail_batch_side groups octaves on the exact branch only "
+                         "(use_approx_topk=False)")
     st = _static(shapes, device)
+    meta = (_tail_canvas(shapes, tail, device) if tail < len(shapes) else
+            dict(st, ly=st["hs"] - 1, lx=st["ws"] - 1,
+                 n_total=sum((p - 2) * (h - 2) * (w - 2) for p, h, w in shapes)))
+    k = min(max_keypoints, meta["n_total"])
     # (B, L): each frame's octaves back to back, frame-major.
-    flat_dog = torch.cat([d.to(torch.float32).reshape(b, -1) for d in dogs], dim=1)
+    flat_dog = torch.cat([d.to(torch.float32).reshape(b, -1) for d in dogs[:tail]]
+                         or [dogs[0].new_zeros((b, 0), dtype=torch.float32)], dim=1)
     thr = contrast_threshold / cfg.S
     if use_approx_topk:
         tv, ti, tscore = score_tables.score_block_top2(
@@ -293,8 +357,14 @@ def detect_pyramid_batched(
         )
         vals, idx = _select_from_tables(tv, ti, tscore, st, k)
     else:
-        scores = [dense_score(d, thr, edge_ratio, refine_iters) for d in dogs]
-        vals, idx = stable_top_k(torch.cat([sc.reshape(b, -1) for sc in scores], dim=1), k)
+        scores = [dense_score(d, thr, edge_ratio, refine_iters).reshape(b, -1)
+                  for d in dogs[:tail]]
+        if tail < len(shapes):
+            tail_score, tail_dog = _tail_scores(dogs[tail:], meta, thr, edge_ratio,
+                                                refine_iters)
+            scores.append(tail_score)
+            flat_dog = torch.cat([flat_dog, tail_dog], dim=1)
+        vals, idx = stable_top_k(torch.cat(scores, dim=1), k)
     if k < max_keypoints:  # tiny pyramid: pad up to capacity
         pad = max_keypoints - k
         vals = torch.cat([vals, vals.new_zeros((b, pad))], dim=-1)
@@ -307,11 +377,11 @@ def detect_pyramid_batched(
             vals = vals & ~31
         vals = vals.view(torch.float32)
 
-    bases = st["base"]
+    bases = meta["base"]
     j = (idx[..., None] >= bases).sum(-1) - 1            # octave of each slot
-    hs_c, ws_c = st["hs"][j], st["ws"][j]
-    gstart_c = st["gstart"][j]
-    lim_y, lim_x = hs_c - 1, ws_c - 1                   # = H-3, W-3
+    hs_c, ws_c = meta["hs"][j], meta["ws"][j]
+    gstart_c = meta["gstart"][j]
+    lim_y, lim_x = meta["ly"][j], meta["lx"][j]         # = H-3, W-3 of the octave
     lim_s = torch.full_like(hs_c, ds2 - 3)
     rem = idx - bases[j]
     s_i = rem // (hs_c * ws_c)

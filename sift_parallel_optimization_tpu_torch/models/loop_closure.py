@@ -191,14 +191,17 @@ def close_loops(
 ) -> SfmMap:
     """PGO over the odometry chain + loop edges, then landmark re-anchor.
 
-    ``mesh`` (the JAX package's edge-sharded distributed PGO) waits for
-    ``parallel/`` on ``torch.distributed``: it must be None.
+    With ``mesh`` (``parallel/mesh.make_mesh``; every rank calls with the
+    same map) the edge-sharded distributed PGO
+    (``parallel/pose_graph.distributed_pgo``) runs instead of the
+    single-device solver: the same fixed point, edges sharded over ``data``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "close_loops(mesh=...): the distributed pose-graph solve is not ported yet "
-            "(ROADMAP.md, parallel/ on torch.distributed); pass mesh=None")
     edges = build_pose_graph_edges(m, n_frames, loop_frames, loop_poses, loop_weight=loop_weight)
-    new_poses = optimize_pose_graph(Poses(rvecs=m.rvecs, tvecs=m.tvecs), edges,
-                                    n_iters=pgo_iters, damping=damping)
+    poses = Poses(rvecs=m.rvecs, tvecs=m.tvecs)
+    if mesh is not None:
+        from sift_parallel_optimization_tpu_torch.parallel.pose_graph import distributed_pgo
+
+        new_poses = distributed_pgo(poses, edges, mesh, n_iters=pgo_iters, damping=damping)
+    else:
+        new_poses = optimize_pose_graph(poses, edges, n_iters=pgo_iters, damping=damping)
     return apply_pose_correction(m, new_poses, pts_per_frame)

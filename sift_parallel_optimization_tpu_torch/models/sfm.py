@@ -511,13 +511,20 @@ def run_sfm(
     RANSAC draws come from ``generator``, or from ``sampler(kind, frame,
     valid, n_hypotheses, n_points) -> indices`` with kind "init" (frame 0),
     "pnp" or "loop": how a test feeds the driver another implementation's
-    draws. ``pgo_mesh`` / ``pair_mesh`` (the JAX package's sharded solvers)
-    wait for ``parallel/`` on ``torch.distributed`` and must be None.
+    draws.
+
+    ``pgo_mesh`` routes the loop-closure PGO through the edge-sharded
+    distributed solver (``parallel/pose_graph.distributed_pgo``);
+    ``pair_mesh`` builds the covisibility table with the ring matcher
+    (``parallel/matching.ring_pairwise_match_counts``). Both are
+    ``parallel/mesh.make_mesh`` meshes, and every rank runs the driver on
+    the same features.
     """
-    if pgo_mesh is not None or pair_mesh is not None:
-        raise NotImplementedError(
-            "run_sfm(pgo_mesh=/pair_mesh=): the sharded pose-graph solve and ring matcher "
-            "are not ported yet (ROADMAP.md, parallel/ on torch.distributed)")
+    from sift_parallel_optimization_tpu_torch.parallel.mesh import check_mesh
+
+    for mesh in (pgo_mesh, pair_mesh):
+        if mesh is not None:
+            check_mesh(mesh)
     from sift_parallel_optimization_tpu_torch.models.loop_closure import (
         close_loops,
         propose_loop_closure,
@@ -569,7 +576,8 @@ def run_sfm(
 
     def finish(m):
         if loop_closure and loop_frames:
-            m = close_loops(m, n, loop_frames, loop_poses, B, loop_weight=loop_weight)
+            m = close_loops(m, n, loop_frames, loop_poses, B, loop_weight=loop_weight,
+                            mesh=pgo_mesh)
         return ba(m, final_ba_iters)
 
     if pair_selection == "covisibility":
@@ -578,7 +586,7 @@ def run_sfm(
                              "(resume assumes sequential frame order)")
         return finish(_run_sfm_covisibility(
             generator, features, K, m, B, ba_every, ba, loop_closure, loop_min_gap, propose,
-            sampler))
+            sampler, pair_mesh))
     if pair_selection != "sequential":
         raise ValueError(f"pair_selection must be 'sequential' or 'covisibility', "
                          f"got {pair_selection!r}")
@@ -608,7 +616,7 @@ def run_sfm(
 
 
 def _run_sfm_covisibility(generator, features, K, m, B, ba_every, ba, loop_closure,
-                          loop_min_gap, propose, sampler) -> SfmMap:
+                          loop_min_gap, propose, sampler, pair_mesh=None) -> SfmMap:
     """Covisibility-order registration (``run_sfm`` pair_selection mode):
     frames register in maximum-spanning-tree order of the pairwise match
     table, each against its most covisible partner. Frame ids keep their
@@ -618,12 +626,17 @@ def _run_sfm_covisibility(generator, features, K, m, B, ba_every, ba, loop_closu
     from sift_parallel_optimization_tpu_torch.parallel.matching import (
         covisibility_order,
         pairwise_match_counts,
+        ring_pairwise_match_counts,
     )
 
     n = len(features)
     desc = torch.stack([f.descriptors for f in features])
     val = torch.stack([f.keypoints.valid for f in features])
-    order, partner = covisibility_order(pairwise_match_counts(desc, val).cpu().numpy())
+    if pair_mesh is not None:
+        table = ring_pairwise_match_counts(pair_mesh, desc, val)
+    else:
+        table = pairwise_match_counts(desc, val)
+    order, partner = covisibility_order(table.cpu().numpy())
 
     a, b = order[0], order[1]
     m, used_a, used_b = init_two_view(generator, features[a], features[b], K, m, B,

@@ -17,8 +17,10 @@ tracking record ``device_ms`` and ``device_top``; a stream
 record ``chain`` (None: a wall, not a chain); the frame-batch records
 ``jax_path``; the pyramid variants ``cuda``/``plain`` stand for
 ``pallas``/``jnp``, the frame-batch path ``per_frame`` for ``vmap``; the
-matrix has no ``blur_precision``, Pallas ``tile_rows`` or mesh-shape
-records."""
+matrix has no ``blur_precision`` or Pallas ``tile_rows`` records, and its
+mesh-shape records are the port's world's factorizations (here 1x1; at 2
+and 4 ranks: tests/test_torch_parallel_scale_space.py, with the scaling
+workload)."""
 
 import ast
 import collections
@@ -147,8 +149,16 @@ def test_records_equal_jax(stubs, workload):
     jax_recs = _records(JaxWriter, getattr(jsuite, fn), **TINY[workload])
     port = _records(MetricsWriter, getattr(tsuite, fn), device="cpu", **TINY[workload])
     if workload == "matrix":
+        jax_mesh = [r for r in jax_recs if r["metric"].startswith("matrix_mesh_shape")]
         jax_recs = [r for r in jax_recs if "blur_precision" not in r
                     and not r["metric"].startswith(("matrix_pallas_tile", "matrix_mesh_shape"))]
+        port_mesh = [r for r in port if r["metric"].startswith("matrix_mesh_shape")]
+        port = [r for r in port if not r["metric"].startswith("matrix_mesh_shape")]
+        # One process: the world is 1, and the sweep's one shape is 1x1.
+        assert [r["mesh"] for r in port_mesh] == ["1x1"]
+        assert port_mesh[0]["metric"] == jax_mesh[0]["metric"]
+        assert set(port_mesh[0]) == set(jax_mesh[0]) | EXTRA["matrix"]
+        assert not torch.distributed.is_initialized()     # the sweep's own group is gone
     assert [r["metric"] for r in port] == [r["metric"] for r in jax_recs]
     for p, j in zip(port, jax_recs):
         want = set(j) | EXTRA[workload] | ({"jax_path"} if "path" in j else set())
@@ -183,16 +193,15 @@ def test_records_equal_jax_source(stubs, workload):
 
 def test_run_suite_sizes_and_workloads(stubs):
     """``size`` sets every sized workload's one side; tracking then runs at
-    that size alone. An unknown workload and ``scaling`` raise."""
+    that size alone. An unknown workload raises; ``scaling`` is one of the
+    workloads (its records: tests/test_torch_parallel_scale_space.py)."""
     recs = _records(MetricsWriter, tsuite.run_suite, workloads=("pyramid", "frontend"), size=48,
                     max_keypoints=16, device="cpu")
     assert [r["metric"] for r in recs] == ["pyramid_dog_ms_per_frame_48", "frontend_ms_per_frame_48",
                                           "frontend_dual_ms_per_frame_48"]
     with pytest.raises(ValueError, match="unknown workloads"):
         _records(MetricsWriter, tsuite.run_suite, workloads=("pyramids",), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        _records(MetricsWriter, tsuite.run_suite, workloads=("pyramid", "scaling"), device="cpu")
-    assert "scaling" not in tsuite.WORKLOADS
+    assert tsuite.WORKLOADS[-1] == "scaling"
 
 
 def test_cli_bench_writes_jsonl(tmp_path):
@@ -208,9 +217,11 @@ def test_cli_bench_writes_jsonl(tmp_path):
 
 
 def test_cli_bench_refuses_scaling_and_a_missing_card(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tcli.main(["bench", "--workloads", "scaling", "--device", "cpu"])
+    """Without a card, the default device refuses every workload, scaling's
+    rank groups included: nothing falls back to gloo on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(["bench", "--workloads", "scaling", "--out", str(tmp_path / "s.jsonl")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(["bench", "--workloads", "matching", "--out", str(tmp_path / "x.jsonl")])
 

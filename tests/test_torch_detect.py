@@ -146,3 +146,29 @@ def test_detect_octave_matches_jax(dogs256, octave, refine_iters):
     assert int(got.count()) > 0 and got.capacity == 64
     assert_same_keypoints(got, want)
     assert (got.octave.numpy()[got.valid.numpy()] == octave).all()
+
+
+@pytest.mark.parametrize("tail_batch_side", [32, 64])
+def test_tail_batch_side_matches_jax(dogs256, tail_batch_side):
+    """The padded-canvas tail group (octaves of side <= tail_batch_side in
+    one zero-padded canvas, the exact branch): slot for slot the JAX
+    package's detect_pyramid with the same knob, and the same keypoint set
+    as the native grouping (the canvas only reorders ties)."""
+    jcfg, tcfg = jfe.sift_config(256), tfe.sift_config(256)
+    want = jax.jit(lambda d: jdet.detect_pyramid(d, jcfg, 256, tail_batch_side=tail_batch_side))(
+        [jnp.asarray(d) for d in dogs256])
+    dogs = [torch.from_numpy(d.copy()) for d in dogs256]
+    got = tdet.detect_pyramid(dogs, tcfg, 256, tail_batch_side=tail_batch_side)
+    assert_same_keypoints(got, want)
+    native = tdet.detect_pyramid(dogs, tcfg, 256)
+    key = lambda kp: set(zip(kp.octave[kp.valid].tolist(), kp.scale[kp.valid].tolist(),
+                             kp.x[kp.valid].round(decimals=3).tolist(),
+                             kp.y[kp.valid].round(decimals=3).tolist()))
+    assert key(got) == key(native)
+    batched = tdet.detect_pyramid_batched([d[None].expand(2, -1, -1, -1) for d in dogs], tcfg,
+                                          256, tail_batch_side=tail_batch_side)
+    for f in tkp.Keypoints._fields:
+        assert torch.equal(getattr(batched, f)[1], getattr(got, f)), f
+    with pytest.raises(ValueError, match="exact branch"):
+        tdet.detect_pyramid(dogs, tcfg, 256, tail_batch_side=tail_batch_side,
+                            use_approx_topk=True)

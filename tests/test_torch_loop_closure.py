@@ -169,5 +169,7 @@ def test_close_loops_and_pose_correction_match_jax(world):
     tw = tlc.apply_pose_correction(tmap, tpg.Poses(torch.from_numpy(np.asarray(new.rvecs)),
                                                    torch.from_numpy(np.asarray(new.tvecs))), B)
     np.testing.assert_allclose(tw.points.numpy(), np.asarray(jw.points), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # A mesh must be a (data, spatial) DeviceMesh (parallel/mesh.make_mesh;
+    # the distributed PGO itself: tests/test_torch_parallel_data.py).
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tlc.close_loops(tmap, N_FRAMES, frames, tposes, B, mesh=object())

@@ -237,7 +237,9 @@ def test_checkpoint_fingerprint_and_refusals(scene, tmp_path):
                      **RUN_KW)
     with pytest.raises(ValueError, match="pair_selection"):
         tsfm.run_sfm(gen, feats, K_T, pair_selection="random")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    # A mesh must be a (data, spatial) DeviceMesh, checked before any work
+    # (the meshes' runs: tests/test_torch_parallel_data.py).
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsfm.run_sfm(gen, feats, K_T, pgo_mesh=object())
 
 
