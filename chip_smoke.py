@@ -518,16 +518,19 @@ def device_profile(torch, fn, *args, iters=10):
 
 def flushed_kernel_ms(torch, fn, *args, iters=20):
     """Median device ms of ``fn(*args)`` with the L2 flushed before each
-    call (a write of twice the L2's size between the calls, outside the
-    CUDA events around the call): what the call costs when its inputs come
-    from HBM and no earlier output lines wait in the L2."""
+    call (a read of twice the L2's size between the calls, outside the
+    CUDA events around the call, so the L2 holds clean lines of another
+    buffer): what the call costs when its inputs come from HBM. A spin of
+    the device after the flush keeps the host's enqueue of the call out
+    of the events."""
     dev = args[0].device
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
-    scratch = torch.empty(max(2 * l2, 1 << 26) // 4, dtype=torch.float32, device=dev)
+    scratch = torch.ones(max(2 * l2, 1 << 26) // 4, dtype=torch.float32, device=dev)
     fn(*args)
     pairs = []
     for _ in range(iters):
-        scratch.zero_()
+        scratch.amax()
+        torch.cuda._sleep(2_000_000)       # ~1 ms of device time: the host enqueues ahead
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn(*args)
@@ -1810,6 +1813,7 @@ def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
 
     from sift_parallel_optimization_tpu_torch.core.pyramid_ref import (
         SiftPyramid,
+        reference_dog_octave,
         reference_dog_pyramid,
     )
     from sift_parallel_optimization_tpu_torch.models import ba, loop_closure
@@ -1822,7 +1826,13 @@ def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
     from sift_parallel_optimization_tpu_torch.parallel import pose_graph as ppg
     from sift_parallel_optimization_tpu_torch.parallel import scale_space as pss
     from sift_parallel_optimization_tpu_torch.parallel.dryrun import dryrun_multichip
-    from sift_parallel_optimization_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from sift_parallel_optimization_tpu_torch.ops import scale_space as ss
+    from sift_parallel_optimization_tpu_torch.parallel.mesh import (
+        all_gather,
+        all_reduce,
+        initialize_distributed,
+        make_mesh,
+    )
     from sift_parallel_optimization_tpu_torch.utils.profiling import cuda_time_ms
 
     t0 = time.perf_counter()
@@ -1843,7 +1853,7 @@ def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
                 lambda: reference_dog_pyramid(img, 2)),
             "reference scales (octave 0)": (
                 lambda: [pss.scale_sharded_reference_dog_octave(mesh, 2, 512)(img).full_tensor()],
-                lambda: reference_dog_pyramid(img, 2, n_octaves=1)),
+                lambda: [reference_dog_octave(img, 2)]),
         }
         for name in list(calls):
             got = calls[name][0]()
@@ -1920,10 +1930,21 @@ def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
             lambda: loop_closure.close_loops(m, n, loop_frames, cams, B, mesh=mesh),
             lambda: loop_closure.close_loops(m, n, loop_frames, cams, B))
 
+        # The dry run's data-parallel step runs kernel 1 on two 64^2 frames
+        # with 3 octaves: held to the plain version at that shape first.
+        img64 = torch.from_numpy(np.random.default_rng(0).random((64, 64), np.float32)).to(dev)
+        check(all(same_bits(torch, a, b) for a, b in zip(
+            ss.reference_dog_pyramid_cuda(img64, 2, 3), ss.reference_dog_pyramid_plain(img64, 2, 3))),
+            "mesh: kernel 1 at 64^2, 3 octaves, not bitwise equal to plain")
+        held("reference_dog_pyramid", img64, 2, 3)
         dry = dryrun_multichip(1, device=dev)
         check(all(np.isfinite(v).all() for k, v in dry.items() if k != "mesh"),
               f"mesh: dryrun {dry}")
         checked_s = time.perf_counter() - t0
+        # What one degenerate collective costs a call, beside a copy.
+        one = torch.ones(1, device=dev)
+        calls["all_reduce of one float"] = (lambda: all_reduce(one, mesh, "data"), one.clone)
+        calls["all_gather of one float"] = (lambda: all_gather(one, mesh, "data"), one.clone)
         times = {name: (cuda_time_ms(a, warmup=1, iters=3), cuda_time_ms(b, warmup=1, iters=3))
                  for name, (a, b) in calls.items()}
     finally:

@@ -192,8 +192,8 @@ _STATIC: dict[tuple, dict] = {}
 
 def _static(shapes: tuple, device) -> dict:
     """Per-octave metadata of a pyramid shape on ``device``, built once:
-    flat score bases, interior dims, DoG starts, fit offsets, and the
-    positions the block-reduce selection gathers from."""
+    flat score bases, interior dims, hop limits, DoG starts, fit offsets,
+    and the positions the block-reduce selection gathers from."""
     key = (shapes, str(device))
     if key in _STATIC:
         return _STATIC[key]
@@ -204,6 +204,9 @@ def _static(shapes: tuple, device) -> dict:
         "base": meta([o.g_base for o in lay]),
         "hs": meta([o.h - 2 for o in lay]),
         "ws": meta([o.w - 2 for o in lay]),
+        "ly": meta([o.h - 3 for o in lay]),
+        "lx": meta([o.w - 3 for o in lay]),
+        "n_total": sum((p - 2) * (h - 2) * (w - 2) for p, h, w in shapes),
         "gstart": meta([o.dog_off for o in lay]),
         "fit": meta(list(_FIT_OFFSETS)),                     # (19, 3)
     }
@@ -343,9 +346,7 @@ def detect_pyramid_batched(
         raise ValueError("tail_batch_side groups octaves on the exact branch only "
                          "(use_approx_topk=False)")
     st = _static(shapes, device)
-    meta = (_tail_canvas(shapes, tail, device) if tail < len(shapes) else
-            dict(st, ly=st["hs"] - 1, lx=st["ws"] - 1,
-                 n_total=sum((p - 2) * (h - 2) * (w - 2) for p, h, w in shapes)))
+    meta = _tail_canvas(shapes, tail, device) if tail < len(shapes) else st
     k = min(max_keypoints, meta["n_total"])
     # (B, L): each frame's octaves back to back, frame-major.
     flat_dog = torch.cat([d.to(torch.float32).reshape(b, -1) for d in dogs[:tail]]

@@ -12,6 +12,7 @@ one data-parallel step of the batched REFERENCE pyramid over a frame batch.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -69,8 +70,6 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda", help="cuda (NCCL, default) or cpu (gloo)")
     args = p.parse_args(argv)
-    import os
-
     out = dryrun_multichip(int(os.environ.get("WORLD_SIZE", "1")), device=args.device)
     if dist.get_rank() == 0:
         print(out)

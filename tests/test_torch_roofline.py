@@ -220,6 +220,30 @@ def test_patch_gather_bounds_equal_chip_smoke():
         assert by == "bytes"
 
 
+@pytest.mark.parametrize("atlas_shape", [(60, 80), (3, 60, 80)])
+def test_patch_footprint_is_the_union_of_the_windows(atlas_shape):
+    """Kernel 2a / 2b's read: the atlas pixels some window covers, origins
+    normalised as the kernel normalises them (negative from the end, then
+    clamped), per frame of a stack or over one shared atlas; the model
+    charges it in place of the patches' pixels."""
+    from sift_parallel_optimization_tpu_torch.ops.patch_gather import _normalise
+
+    rng = np.random.default_rng(0)
+    lead = () if len(atlas_shape) == 2 else (atlas_shape[0],)
+    ys = torch.from_numpy(rng.integers(-70, 70, (*lead, 7)).astype(np.int32))
+    xs = torch.from_numpy(rng.integers(-90, 90, (*lead, 7)).astype(np.int32))
+    rows, cols = 9, 13
+    y0, x0 = _normalise(ys, xs, atlas_shape[-2], atlas_shape[-1], rows, cols)
+    covered = np.zeros((len(lead) and lead[0] or 1, *atlas_shape[-2:]), bool)
+    for idx in np.ndindex(*ys.shape):
+        covered[idx[0] if lead else 0, y0[idx]:y0[idx] + rows, x0[idx]:x0[idx] + cols] = True
+    foot = tr.patch_footprint_bytes(atlas_shape, ys, xs, rows, cols)
+    assert foot == covered.sum() * 4.0 < 7 * max(1, len(lead) and lead[0]) * rows * cols * 4
+    n = ys.numel()
+    model = tr.patch_gather_model(n, rows, cols, int(np.prod(atlas_shape)), foot)
+    assert model.hbm_bytes == foot + n * (rows * cols * 4.0 + 8.0)
+
+
 @pytest.mark.parametrize("size,b,want", [(256, 1, 0.0006), (512, 1, 0.002218469253731343),
                                          (512, 8, 0.0177), (1024, 1, 0.0088), (1024, 8, 0.0706)])
 def test_score_tables_bound_equals_chip_smoke(size, b, want):
