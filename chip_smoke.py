@@ -20,7 +20,9 @@ over 120 rendered frames through the batched frontend, with archive loop
 closure, its steady step as CUDA graphs; and online serving: OdometryStream
 over the same features against run_odometry, and cli stream's loop from the
 host library's ring loader through the frontend and OdometryStream at three
-configurations; and the benchmark matrix through cli bench) and checks their
+configurations; the distributed layer (parallel/) on a world-size-1 NCCL
+mesh, every sharded entry point against its unsharded counterpart; and the
+benchmark matrix through cli bench) and checks their
 outputs against the port's per-frame, eager and CPU runs, against the truth
 of the synthetic scenes and, for the bench records, against their floors in
 bench/roofline.py (which also gives every kernel's bound). Every shape a
@@ -1806,27 +1808,123 @@ def sfm_cpu_phase(torch, dev):
     return start, obs, K
 
 
-def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
-    """The distributed layer at world size 1 under NCCL (see
-    MESH_SIFT_ATOL); returns the mesh frontend's launches."""
-    import torch.distributed as dist
-
+def mesh_calls(torch, dev, mesh, img, sift_imgs, batch, keyframes, arc, graph):
+    """Every sharded entry point of the distributed layer beside its
+    unsharded counterpart on ``mesh``: {name: (sharded call, unsharded
+    call, gap of their results, tolerance)}. The REFERENCE splits of
+    ``img`` against kernel 1's pyramid (the scale split against the plain
+    octave) bitwise; the SIFT pyramid of each of ``sift_imgs`` within
+    MESH_SIFT_ATOL; 3-row halo strips exactly; the frontend on ``batch``
+    slot for slot; the ring table of ``keyframes`` (descriptors, valid)
+    exactly; BA dense and CG on ``arc`` (start, observations, K), 20 steps,
+    within MESH_STATE_RTOL of each field's largest magnitude; PGO on
+    ``graph`` (poses, edges) within MESH_POSE_ATOL. The mesh phase and
+    tools/mesh_multicard.py hold each gap and time both calls."""
     from sift_parallel_optimization_tpu_torch.core.pyramid_ref import (
         SiftPyramid,
         reference_dog_octave,
         reference_dog_pyramid,
     )
-    from sift_parallel_optimization_tpu_torch.models import ba, loop_closure
+    from sift_parallel_optimization_tpu_torch.models import ba
     from sift_parallel_optimization_tpu_torch.models import pose_graph as pg
     from sift_parallel_optimization_tpu_torch.models.frontend import sift_config
-    from sift_parallel_optimization_tpu_torch.models.geometry import Camera
     from sift_parallel_optimization_tpu_torch.parallel import ba as pba
     from sift_parallel_optimization_tpu_torch.parallel import frontend as pfe
+    from sift_parallel_optimization_tpu_torch.parallel import halo
     from sift_parallel_optimization_tpu_torch.parallel import matching as pm
     from sift_parallel_optimization_tpu_torch.parallel import pose_graph as ppg
     from sift_parallel_optimization_tpu_torch.parallel import scale_space as pss
-    from sift_parallel_optimization_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sift_parallel_optimization_tpu_torch.parallel.mesh import (
+        all_gather,
+        axis_index,
+        axis_size,
+    )
+
+    full = lambda outs: [o.full_tensor() for o in outs]
+    size = img.shape[0]
+    calls = {
+        "reference rows": (lambda: full(pss.sharded_reference_dog_pyramid(img, 2, mesh)),
+                           lambda: reference_dog_pyramid(img, 2), max_err, 0.0),
+        "reference octaves": (lambda: full(pss.octave_sharded_reference_dog_pyramid(img, 2, mesh)),
+                              lambda: reference_dog_pyramid(img, 2), max_err, 0.0),
+        "reference scales (octave 0)": (
+            lambda: [pss.scale_sharded_reference_dog_octave(mesh, 2, size)(img).full_tensor()],
+            lambda: [reference_dog_octave(img, 2)], max_err, 0.0),
+    }
+    for im in sift_imgs:
+        side = im.shape[0]
+        spyr = pss.ShardedSiftPyramid(sift_config(side), side, side, mesh, device=dev)
+        upyr = SiftPyramid(sift_config(side), side, device=dev)
+        calls[f"SIFT pyramid {side}^2"] = (lambda s=spyr, x=im: full(s(x)),
+                                           lambda u=upyr, x=im: u(x), max_err, MESH_SIFT_ATOL)
+
+    n, i = axis_size(mesh, "spatial"), axis_index(mesh, "spatial")
+    grid = torch.arange(size * 64, dtype=torch.float32, device=dev).view(size, 64)
+    h = size // n
+    padded = torch.cat([grid[:1].expand(3, -1), grid, grid[-1:].expand(3, -1)])
+    calls["halo 3 rows"] = (
+        lambda: [all_gather(halo.exchange_rows(grid[i * h:(i + 1) * h], 3, mesh), mesh, "spatial")],
+        lambda: [torch.cat([padded[k * h:k * h + h + 6] for k in range(n)])], max_err, 0.0)
+
+    cfg = sift_config(batch.shape[-1], S=3)
+
+    def slots_gap(got, want):
+        return 1.0 - min(compare_frames(torch, frame_of(got, b), frame_of(want, b))[0]
+                         for b in range(batch.shape[0]))
+
+    calls[f"frontend {batch.shape[-1]}^2 B={batch.shape[0]}"] = (
+        lambda: pfe.gather_features(pfe.batched_extract_features(batch, cfg, 512, mesh=mesh),
+                                    mesh),
+        lambda: pfe.batched_extract_features(batch, cfg, 512), slots_gap, 0.0)
+
+    desc, val = keyframes
+    calls[f"ring table {desc.shape[0]}x{desc.shape[1]}"] = (
+        lambda: [pm.ring_pairwise_match_counts(mesh, desc, val)],
+        lambda: [pm.pairwise_match_counts(desc, val)], max_err, 0.0)
+
+    start, obs, k_arc = arc
+
+    def state_gap(a, b):
+        return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b))
+
+    for solver in ("dense", "cg"):
+        kw = dict(n_iters=20, damping=1e-4, solver=solver)
+        calls[f"BA {solver} 20 steps"] = (
+            lambda kw=kw: pba.distributed_bundle_adjust(start, obs, k_arc, mesh, **kw),
+            lambda kw=kw: ba.bundle_adjust(start, obs, k_arc, **kw), state_gap,
+            MESH_STATE_RTOL)
+
+    poses, edges = graph
+    kw = dict(n_iters=MESH_PGO_ITERS, damping=1e-4)
+    calls[f"PGO {poses.rvecs.shape[0]} nodes {MESH_PGO_ITERS} steps"] = (
+        lambda: ppg.distributed_pgo(poses, edges, mesh, **kw),
+        lambda: pg.optimize_pose_graph(poses, edges, solver="dense", **kw), max_err,
+        MESH_POSE_ATOL)
+    return calls
+
+
+def pgo_graph(torch, dev):
+    """The pgo phase's PGO_NODES-node SE(3) graph: (drifted poses, edges)."""
+    from sift_parallel_optimization_tpu_torch.models import pose_graph as pg
+
+    _gt, (er, et), edges = pose_graph_scene(PGO_NODES, PGO_NODES // 2, PGO_LOOP_EVERY,
+                                            noise=PGO_NOISE)
+    return (pg.Poses(torch.from_numpy(er).to(dev), torch.from_numpy(et).to(dev)),
+            pg.pose_graph_edges_from_numpy(
+                {f: edges[f] for f in ("i", "j", "rel_rvec", "rel_tvec", "weight")}, dev))
+
+
+def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
+    """The distributed layer at world size 1 under NCCL (see
+    MESH_SIFT_ATOL); returns the mesh frontend's launches."""
+    import torch.distributed as dist
+
+    from sift_parallel_optimization_tpu_torch.models import loop_closure
+    from sift_parallel_optimization_tpu_torch.models.frontend import sift_config
+    from sift_parallel_optimization_tpu_torch.models.geometry import Camera
     from sift_parallel_optimization_tpu_torch.ops import scale_space as ss
+    from sift_parallel_optimization_tpu_torch.parallel import frontend as pfe
+    from sift_parallel_optimization_tpu_torch.parallel.dryrun import dryrun_multichip
     from sift_parallel_optimization_tpu_torch.parallel.mesh import (
         all_gather,
         all_reduce,
@@ -1842,93 +1940,36 @@ def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
         world, backend = dist.get_world_size(), dist.get_backend()
         check(world == 1 and backend == "nccl", f"mesh: world {world} under {backend}")
         mesh = make_mesh(1, 1)
-        full = lambda outs: [o.full_tensor() for o in outs]
-        img = frames["headline"]
-        want = reference_dog_pyramid(img, 2)
-        calls = {   # name: (sharded, unsharded)
-            "reference rows": (lambda: full(pss.sharded_reference_dog_pyramid(img, 2, mesh)),
-                               lambda: reference_dog_pyramid(img, 2)),
-            "reference octaves": (
-                lambda: full(pss.octave_sharded_reference_dog_pyramid(img, 2, mesh)),
-                lambda: reference_dog_pyramid(img, 2)),
-            "reference scales (octave 0)": (
-                lambda: [pss.scale_sharded_reference_dog_octave(mesh, 2, 512)(img).full_tensor()],
-                lambda: [reference_dog_octave(img, 2)]),
-        }
-        for name in list(calls):
-            got = calls[name][0]()
-            check(len(got) <= len(want) and all(same_bits(torch, g, w) for g, w in zip(got, want)),
-                  f"mesh: {name} not bitwise equal to kernel 1's pyramid")
-        sift_err = {}
-        for size in (512, 1024):
-            im, cfg = frames[size][0], sift_config(size)
-            spyr = pss.ShardedSiftPyramid(cfg, size, size, mesh, device=dev)
-            upyr = SiftPyramid(cfg, size, device=dev)
-            sift_err[size] = max_err(full(spyr(im)), upyr(im))
-            check(sift_err[size] <= MESH_SIFT_ATOL, f"mesh: SIFT {size}^2 {sift_err[size]:.3e}")
-            calls[f"SIFT pyramid {size}^2"] = (lambda s=spyr, x=im: full(s(x)),
-                                               lambda u=upyr, x=im: u(x))
-
         batch = torch.stack(frames[512])
         cfg = sift_config(512, S=3)
-        mesh_fe = lambda: pfe.gather_features(pfe.batched_extract_features(batch, cfg, 512,
-                                                                           mesh=mesh), mesh)
-        out, launches = counted(torch, counters, mesh_fe)
+        out, launches = counted(torch, counters, lambda: pfe.gather_features(
+            pfe.batched_extract_features(batch, cfg, 512, mesh=mesh), mesh))
         fracs = [compare_frames(torch, frame_of(out, i), frame_of(batched, i))
                  for i in range(BATCH)]
         check(min(f[0] for f in fracs) >= BATCH_SLOT_FRAC and min(f[1] for f in fracs)
-              >= DESC_FRAC, f"mesh: frontend differs from the batched one: {fracs}")
-        calls["frontend 512^2 B=8"] = (mesh_fe,
-                                       lambda: pfe.batched_extract_features(batch, cfg, 512))
+              >= DESC_FRAC, f"mesh: frontend differs from the batched phase's: {fracs}")
 
-        m, feats, K = sfm_out
-        desc = torch.stack([f.descriptors for f in feats])
-        val = torch.stack([f.keypoints.valid for f in feats])
-        ring = pm.ring_pairwise_match_counts(mesh, desc, val)
-        check(torch.equal(ring, pm.pairwise_match_counts(desc, val)), "mesh: ring table differs")
-        calls[f"ring table {desc.shape[0]}x{desc.shape[1]}"] = (
-            lambda: pm.ring_pairwise_match_counts(mesh, desc, val),
-            lambda: pm.pairwise_match_counts(desc, val))
-
-        start, obs, k_arc = arc
-        ba_gap = {}
-        for solver in ("dense", "cg"):
-            kw = dict(n_iters=20, damping=1e-4, solver=solver)
-            d = pba.distributed_bundle_adjust(start, obs, k_arc, mesh, **kw)
-            u = ba.bundle_adjust(start, obs, k_arc, **kw)
-            ba_gap[solver] = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(d, u))
-            check(ba_gap[solver] <= MESH_STATE_RTOL, f"mesh: BA {solver} {ba_gap[solver]:.3e}")
-            calls[f"BA {solver} 20 steps"] = (
-                lambda kw=kw: pba.distributed_bundle_adjust(start, obs, k_arc, mesh, **kw),
-                lambda kw=kw: ba.bundle_adjust(start, obs, k_arc, **kw))
-
-        _gt, (er, et), edges = pose_graph_scene(PGO_NODES, PGO_NODES // 2, PGO_LOOP_EVERY,
-                                                noise=PGO_NOISE)
-        poses = pg.Poses(torch.from_numpy(er).to(dev), torch.from_numpy(et).to(dev))
-        e = pg.pose_graph_edges_from_numpy(
-            {f: edges[f] for f in ("i", "j", "rel_rvec", "rel_tvec", "weight")}, dev)
-        pgo_kw = dict(n_iters=MESH_PGO_ITERS, damping=1e-4)
-        pgo_gap = max_err(ppg.distributed_pgo(poses, e, mesh, **pgo_kw),
-                          pg.optimize_pose_graph(poses, e, solver="dense", **pgo_kw))
-        check(pgo_gap <= MESH_POSE_ATOL, f"mesh: PGO {pgo_gap:.3e}")
-        calls[f"PGO {PGO_NODES} nodes {MESH_PGO_ITERS} steps"] = (
-            lambda: ppg.distributed_pgo(poses, e, mesh, **pgo_kw),
-            lambda: pg.optimize_pose_graph(poses, e, solver="dense", **pgo_kw))
-
+        m, feats, _K = sfm_out
+        keyframes = (torch.stack([f.descriptors for f in feats]),
+                     torch.stack([f.keypoints.valid for f in feats]))
+        calls = mesh_calls(torch, dev, mesh, frames["headline"],
+                           [frames[512][0], frames[1024][0]], batch, keyframes, arc,
+                           pgo_graph(torch, dev))
         n, B = SFM_FRAMES, SFM_PTS_PER_FRAME
         blocks = m.obs.valid[3 * n * B:].view(-1, B)
         loop_frames = [int(m.obs.cam_idx[3 * n * B + b * B]) for b in range(blocks.shape[0])
                        if bool(blocks[b].any())]
         check(len(loop_frames) >= 1, "mesh: the sfm map holds no loop")
         cams = [Camera(m.rvecs[f], m.tvecs[f]) for f in loop_frames]
-        closed = {mk: loop_closure.close_loops(m, n, loop_frames, cams, B, mesh=mv)
-                  for mk, mv in (("mesh", mesh), ("none", None))}
-        fields = lambda c: (c.rvecs, c.tvecs, c.points)
-        cl_gap = max_err(fields(closed["mesh"]), fields(closed["none"]))
-        check(cl_gap <= MESH_POSE_ATOL, f"mesh: close_loops {cl_gap:.3e}")
+        map_fields = lambda c: (c.rvecs, c.tvecs, c.points)
         calls[f"close_loops {n} frames, {len(loop_frames)} loops"] = (
-            lambda: loop_closure.close_loops(m, n, loop_frames, cams, B, mesh=mesh),
-            lambda: loop_closure.close_loops(m, n, loop_frames, cams, B))
+            lambda: map_fields(loop_closure.close_loops(m, n, loop_frames, cams, B, mesh=mesh)),
+            lambda: map_fields(loop_closure.close_loops(m, n, loop_frames, cams, B)), max_err,
+            MESH_POSE_ATOL)
+        gaps = {}
+        for name, (sharded, unsharded, gap, tol) in calls.items():
+            gaps[name] = gap(sharded(), unsharded())
+            check(gaps[name] <= tol, f"mesh: {name}: gap {gaps[name]:.3e} above {tol}")
 
         # The dry run's data-parallel step runs kernel 1 on two 64^2 frames
         # with 3 octaves: held to the plain version at that shape first.
@@ -1943,22 +1984,21 @@ def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
         checked_s = time.perf_counter() - t0
         # What one degenerate collective costs a call, beside a copy.
         one = torch.ones(1, device=dev)
-        calls["all_reduce of one float"] = (lambda: all_reduce(one, mesh, "data"), one.clone)
-        calls["all_gather of one float"] = (lambda: all_gather(one, mesh, "data"), one.clone)
+        timed = {name: (a, b) for name, (a, b, _gap, _tol) in calls.items()}
+        timed["all_reduce of one float"] = (lambda: all_reduce(one, mesh, "data"), one.clone)
+        timed["all_gather of one float"] = (lambda: all_gather(one, mesh, "data"), one.clone)
         times = {name: (cuda_time_ms(a, warmup=1, iters=3), cuda_time_ms(b, warmup=1, iters=3))
-                 for name, (a, b) in calls.items()}
+                 for name, (a, b) in timed.items()}
     finally:
         dist.destroy_process_group()
     check(not dist.is_initialized(), "mesh: the group outlived the phase")
     phase("mesh", f"world sizes run: 1 (torch.cuda.device_count() = "
           f"{torch.cuda.device_count()}: NCCL takes one card a rank), backend nccl, mesh 1x1; "
-          f"REFERENCE rows / octaves / scales bitwise equal to kernel 1's pyramid at 512^2; SIFT "
-          f"sharded pyramid max abs diff 512^2 {sift_err[512]:.2e}, 1024^2 {sift_err[1024]:.2e} "
-          f"(atol {MESH_SIFT_ATOL}); frontend 512^2 B={BATCH}: slots equal "
+          f"frontend {512}^2 B={BATCH} vs the batched phase: slots equal "
           f"{min(f[0] for f in fracs):.4f}, descriptors {min(f[1] for f in fracs):.4f}, "
-          f"launches {launches}; ring table equal; BA rel. gap dense {ba_gap['dense']:.2e}, cg "
-          f"{ba_gap['cg']:.2e}; PGO {pgo_gap:.2e}; close_loops ({len(loop_frames)} loops) "
-          f"{cl_gap:.2e}; dryrun {dry['mesh']} finite; checks {checked_s:.1f} s; per call ms, "
+          f"launches {launches}; gaps to the unsharded results (tolerance): " + "; ".join(
+              f"{k} {g:.2e} ({calls[k][3]})" for k, g in gaps.items())
+          + f"; dryrun {dry['mesh']} finite; checks {checked_s:.1f} s; per call ms, "
           f"sharded / unsharded: " + "; ".join(f"{k} {a:.3f} / {b:.3f}"
                                                for k, (a, b) in times.items()))
     return launches
@@ -2384,6 +2424,9 @@ def main() -> int:
     m4, p4 = k4_ms[512][:2]
 
     def entry(name, source, replaces, err, ms, plain, bound, library):
+        # No kernel can beat the least time its work needs: a share above
+        # 100% means the bound charges bytes the kernel does not move.
+        check(bound[0] <= ms, f"{name}: {ms:.4f} ms is under its bound {bound[0]:.4f} ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library}

@@ -117,12 +117,18 @@ def _octave_scale_sigmas(cfg: PyramidConfig) -> list[float]:
     ]
 
 
-def _blur_matrix_np(size: int, sigma: float) -> np.ndarray:
-    """(size, size) f32 Toeplitz matrix with edge-clamped Gaussian taps."""
+def _taps_np(sigma: float) -> tuple[int, np.ndarray]:
+    """(radius, f32 normalized Gaussian taps), summed in f64 then rounded:
+    the taps of every blur matrix."""
     r = max(1, int(math.ceil(3.0 * sigma)))
     x = np.arange(-r, r + 1, dtype=np.float64)
     taps = np.exp(-(x**2) / (2.0 * sigma * sigma))
-    taps = (taps / taps.sum()).astype(np.float32)
+    return r, (taps / taps.sum()).astype(np.float32)
+
+
+def _blur_matrix_np(size: int, sigma: float) -> np.ndarray:
+    """(size, size) f32 Toeplitz matrix with edge-clamped Gaussian taps."""
+    r, taps = _taps_np(sigma)
     b = np.zeros((size, size), np.float32)
     v = np.arange(size)
     for k, t in enumerate(taps):

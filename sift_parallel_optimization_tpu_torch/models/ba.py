@@ -674,7 +674,16 @@ def schur_pcg(
     ``cg_tol=0`` for a fixed trip count.
     """
     b = blk.bc - _w_apply(blk, _matvec(blk.hpp_inv, blk.bp))  # (C, 6)
-    minv = torch.linalg.inv_ex(blk.hcc, check_errors=False).inverse   # block Jacobi
+    return masked_pcg(b, lambda v: schur_matvec(blk, v), blk.hcc, cg_iters, cg_tol)
+
+
+def masked_pcg(b: torch.Tensor, matvec, hcc: torch.Tensor, cg_iters: int,
+               cg_tol: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """CG on ``matvec`` x = b for (C, 6) camera vectors with the block-Jacobi
+    preconditioner of the damped (C, 6, 6) ``hcc``: ``cg_iters`` trips, each
+    kept only while rz > cg_tol * rz0 (see :func:`schur_pcg`). Returns
+    (x, the trips that changed it)."""
+    minv = torch.linalg.inv_ex(hcc, check_errors=False).inverse   # block Jacobi
 
     def prec(v):
         return _matvec(minv, v)
@@ -688,7 +697,7 @@ def schur_pcg(
     n_iters = torch.zeros((), dtype=torch.int32, device=b.device)
     for _ in range(cg_iters):
         active = rz > thresh
-        ap = schur_matvec(blk, p)
+        ap = matvec(p)
         pap = (p * ap).sum()
         alpha = torch.where(pap > 1e-20, rz / torch.clamp(pap, min=1e-20), 0.0)
         x_new = x + alpha * p

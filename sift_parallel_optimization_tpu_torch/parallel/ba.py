@@ -20,10 +20,10 @@ assembly, and reduces with collectives:
 
 The JAX CG runs a ``lax.while_loop`` on the residual; here every one of
 ``cg_iters`` trips runs, its updates gated by ``torch.where`` on the same
-test (``models/ba.schur_pcg``), so no trip reads the device from the host
+test (``models/ba.masked_pcg``), so no trip reads the device from the host
 and every rank issues the same collectives. Sums over observations are
-accumulating ``index_put_`` (sorted, a fixed order on the card), in full
-fp32 (``utils/device.fp32_matmul``).
+accumulating ``index_put_`` (``models/pose_graph._node_sum``: sorted, a
+fixed order on the card), in full fp32 (``utils/device.fp32_matmul``).
 """
 
 from __future__ import annotations
@@ -42,11 +42,14 @@ from sift_parallel_optimization_tpu_torch.models.ba import (
     _matvec,
     apply_deltas,
     assemble_normal_blocks,
+    masked_pcg,
     solve_schur,
 )
+from sift_parallel_optimization_tpu_torch.models.pose_graph import _node_sum as _segment_sum
 from sift_parallel_optimization_tpu_torch.parallel.mesh import (
     all_gather,
     all_reduce,
+    all_reduce_all,
     axis_index,
     axis_size,
     check_device,
@@ -73,22 +76,6 @@ def local_observations(obs: Observations, mesh, axis: str = "data") -> Observati
         raise ValueError(f"{m} observations do not split {n} ways (pad_observations)")
     i = axis_index(mesh, axis)
     return Observations(*[f[i * (m // n):(i + 1) * (m // n)] for f in obs])
-
-
-def all_reduce_all(tensors, mesh, axis: str) -> list[torch.Tensor]:
-    """One all-reduce of several tensors (flattened into one buffer)."""
-    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), mesh, axis)
-    out, start = [], 0
-    for t in tensors:
-        out.append(flat[start:start + t.numel()].view(t.shape))
-        start += t.numel()
-    return out
-
-
-def _segment_sum(values: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.ops.segment_sum`` as an accumulating ``index_put_``."""
-    out = values.new_zeros((n, *values.shape[1:]))
-    return out.index_put_((idx.long(),), values, accumulate=True)
 
 
 def distributed_ba_step(mesh, K: torch.Tensor, damping: float = 1e-3,
@@ -156,31 +143,11 @@ def distributed_ba_step_cg(mesh, K: torch.Tensor, damping: float = 1e-3,
             return all_gather(_matvec(hpp_inv_shard, v_shard), mesh, axis)
 
         b = bc - w_apply(hpp_solve_gather(bp_shard))
-        minv = torch.linalg.inv_ex(hcc, check_errors=False).inverse
 
         def matvec(x):
             return _matvec(hcc, x) - w_apply(hpp_solve_gather(wt_shard(x)))
 
-        x = torch.zeros_like(b)
-        res = b
-        z = _matvec(minv, res)
-        p = z
-        rz = (res * z).sum()
-        thresh = cg_tol * rz
-        for _ in range(cg_iters):
-            active = rz > thresh
-            ap = matvec(p)
-            pap = (p * ap).sum()
-            alpha = torch.where(pap > 1e-20, rz / torch.clamp(pap, min=1e-20), 0.0)
-            x_new = x + alpha * p
-            r_new = res - alpha * ap
-            z = _matvec(minv, r_new)
-            rz_new = (r_new * z).sum()
-            beta = torch.where(rz > 1e-20, rz_new / torch.clamp(rz, min=1e-20), 0.0)
-            p = torch.where(active, z + beta * p, p)
-            x = torch.where(active, x_new, x)
-            res = torch.where(active, r_new, res)
-            rz = torch.where(active, rz_new, rz)
+        x, _trips = masked_pcg(b, matvec, hcc, cg_iters, cg_tol)
         dp_shard = _matvec(hpp_inv_shard, bp_shard - wt_shard(x))
         delta_p = all_gather(dp_shard, mesh, axis)[:P]
         return apply_deltas(st, x, delta_p)

@@ -211,6 +211,17 @@ def all_reduce(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     return out
 
 
+def all_reduce_all(tensors, mesh: DeviceMesh, axis: str) -> list[torch.Tensor]:
+    """``lax.psum`` of several tensors as ONE all-reduce (flattened into one
+    buffer, views of it returned)."""
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), mesh, axis)
+    out, start = [], 0
+    for t in tensors:
+        out.append(flat[start:start + t.numel()].view(t.shape))
+        start += t.numel()
+    return out
+
+
 def reduce_scatter(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """``lax.psum_scatter(..., scatter_dimension=0, tiled=True)``: the sum
     over ``axis``, this rank's 1/n of dim 0."""

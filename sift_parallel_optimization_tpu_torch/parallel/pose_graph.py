@@ -17,8 +17,12 @@ from sift_parallel_optimization_tpu_torch.models.pose_graph import (
     assemble_pgo_blocks,
     solve_pgo,
 )
-from sift_parallel_optimization_tpu_torch.parallel.ba import all_reduce_all
-from sift_parallel_optimization_tpu_torch.parallel.mesh import axis_index, axis_size, check_device
+from sift_parallel_optimization_tpu_torch.parallel.mesh import (
+    all_reduce_all,
+    axis_index,
+    axis_size,
+    check_device,
+)
 from sift_parallel_optimization_tpu_torch.utils.device import f32_precision
 
 

@@ -43,6 +43,7 @@ from sift_parallel_optimization_tpu_torch.config import PyramidConfig
 from sift_parallel_optimization_tpu_torch.core.pyramid_ref import (
     _blur_stack,
     _octave_scale_sigmas,
+    _taps_np,
     blur_bank,
     check_fp32_matmul,
     clamp_octaves,
@@ -191,17 +192,6 @@ def octave_sharded_reference_dog_pyramid(img: torch.Tensor, S: int, mesh,
 # ---------------------------------------------------------------------------
 
 
-def _radius(sigma: float) -> int:
-    return max(1, int(math.ceil(3.0 * sigma)))
-
-
-def _taps_np(sigma: float) -> np.ndarray:
-    r = _radius(sigma)
-    x = np.arange(-r, r + 1, dtype=np.float64)
-    taps = np.exp(-(x**2) / (2.0 * sigma * sigma))
-    return (taps / taps.sum()).astype(np.float32)
-
-
 def sharded_separable_blur(mesh, axis: str = "spatial"):
     """fn(local (h, W) rows, taps (2r+1,)) -> the rank's rows of the edge-
     clamped separable blur. The halo (r rows each way) is exchanged with the
@@ -232,11 +222,10 @@ def _band_matrices(h: int, sigmas) -> tuple[np.ndarray, int]:
     a halo-extended shard: out[a] = sum_b L[a, b] * x_ext[b], the same
     unclamped band on every shard (the border's edge replication lives in
     the halo, not in the matrix)."""
-    radii = [_radius(s) for s in sigmas]
-    r = max(radii)
+    taps_of = [_taps_np(s) for s in sigmas]
+    r = max(rs for rs, _taps in taps_of)
     L = np.zeros((len(sigmas), h, h + 2 * r), np.float32)
-    for si, (sig, rs) in enumerate(zip(sigmas, radii)):
-        taps = _taps_np(sig)
+    for si, (rs, taps) in enumerate(taps_of):
         for a in range(h):
             L[si, a, a + r - rs:a + r + rs + 1] = taps
     return L, r
@@ -294,7 +283,7 @@ class ShardedSiftPyramid:
         dt = cfg.dtype
         base_sigma = math.sqrt(max(cfg.sigma0**2 - cfg.assumed_blur**2, 1e-12))
         rel = _octave_scale_sigmas(cfg)
-        max_r = max(_radius(s) for s in [base_sigma, *rel])
+        max_r = max(_taps_np(s)[0] for s in [base_sigma, *rel])
 
         def can_shard(size: int) -> bool:
             # The halo must fit in the local rows and the stride-2 subsample

@@ -53,102 +53,23 @@ def _per_call_ms(torch, fn, dev) -> float:
     return statistics.median(samples)
 
 
-def _entries(torch, dev, mesh, size: int) -> dict:
-    """{name: (sharded call, unsharded call, gap of the two results, tolerance)}."""
-    from sift_parallel_optimization_tpu_torch.core.pyramid_ref import (
-        SiftPyramid,
-        reference_dog_octave,
-        reference_dog_pyramid,
-    )
-    from sift_parallel_optimization_tpu_torch.models import ba
-    from sift_parallel_optimization_tpu_torch.models import pose_graph as pg
-    from sift_parallel_optimization_tpu_torch.models.frontend import sift_config
-    from sift_parallel_optimization_tpu_torch.parallel import ba as pba
-    from sift_parallel_optimization_tpu_torch.parallel import frontend as pfe
-    from sift_parallel_optimization_tpu_torch.parallel import halo
-    from sift_parallel_optimization_tpu_torch.parallel import matching as pm
-    from sift_parallel_optimization_tpu_torch.parallel import pose_graph as ppg
-    from sift_parallel_optimization_tpu_torch.parallel import scale_space as pss
-    from sift_parallel_optimization_tpu_torch.parallel.mesh import (
-        all_gather,
-        axis_index,
-        axis_size,
-    )
+def _inputs(torch, dev, size: int) -> dict:
+    """The arguments of ``chip_smoke.mesh_calls``: synthetic frames, random
+    keyframes, the BA arc and the pgo phase's graph."""
     from sift_parallel_optimization_tpu_torch.utils import native
 
-    full = lambda outs: [o.full_tensor() for o in outs]
-    gap = lambda a, b: cs.max_err(a, b)
     frames = torch.stack([torch.from_numpy(native.synth_frame(size, i, seed=0))
                           for i in range(cs.BATCH)]).to(dev)
     img = frames[0]
-    out = {
-        "reference rows": (lambda: full(pss.sharded_reference_dog_pyramid(img, 2, mesh)),
-                           lambda: reference_dog_pyramid(img, 2), gap, 0.0),
-        "reference octaves": (lambda: full(pss.octave_sharded_reference_dog_pyramid(img, 2, mesh)),
-                              lambda: reference_dog_pyramid(img, 2), gap, 0.0),
-        "reference scales (octave 0)": (
-            lambda: [pss.scale_sharded_reference_dog_octave(mesh, 2, size)(img).full_tensor()],
-            lambda: [reference_dog_octave(img, 2)], gap, 0.0),
-    }
-    for side in (size, 2 * size):
-        im = torch.nn.functional.interpolate(img[None, None], size=(side, side))[0, 0]
-        spyr = pss.ShardedSiftPyramid(sift_config(side), side, side, mesh, device=dev)
-        upyr = SiftPyramid(sift_config(side), side, device=dev)
-        out[f"SIFT pyramid {side}^2"] = (lambda s=spyr, x=im: full(s(x)),
-                                         lambda u=upyr, x=im: u(x), gap, cs.MESH_SIFT_ATOL)
-
-    # The halo strips: each rank's rows with 3 rows of each neighbour.
-    n, i = axis_size(mesh, "spatial"), axis_index(mesh, "spatial")
-    grid = torch.arange(size * 64, dtype=torch.float32, device=dev).view(size, 64)
-    h = size // n
-    padded = torch.cat([grid[:1].expand(3, -1), grid, grid[-1:].expand(3, -1)])
-    out["halo 3 rows"] = (
-        lambda: [all_gather(halo.exchange_rows(grid[i * h:(i + 1) * h], 3, mesh), mesh, "spatial")],
-        lambda: [torch.cat([padded[k * h:k * h + h + 6] for k in range(n)])], gap, 0.0)
-
-    cfg = sift_config(size)
-
-    def frontend_gap(got, want):
-        return 1.0 - min(cs.compare_frames(torch, cs.frame_of(got, b), cs.frame_of(want, b))[0]
-                         for b in range(cs.BATCH))
-
-    out[f"frontend {size}^2 B={cs.BATCH}"] = (
-        lambda: pfe.gather_features(pfe.batched_extract_features(frames, cfg, 512, mesh=mesh),
-                                    mesh),
-        lambda: pfe.batched_extract_features(frames, cfg, 512), frontend_gap, 0.0)
-
+    big = torch.nn.functional.interpolate(img[None, None], size=(2 * size, 2 * size))[0, 0]
     rng = np.random.default_rng(0)
     desc = rng.normal(size=(50, 512, 128)).astype(np.float32)
     desc[1:, :200] = desc[:-1, :200] + 0.01 * rng.normal(size=(49, 200, 128)).astype(np.float32)
     desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
-    desc = torch.from_numpy(desc).to(dev)
-    valid = torch.from_numpy(rng.random((50, 512)) < 0.9).to(dev)
-    out["ring table 50x512"] = (
-        lambda: [pm.ring_pairwise_match_counts(mesh, desc, valid)],
-        lambda: [pm.pairwise_match_counts(desc, valid)], gap, 0.0)
-
-    start, obs, k_arc = cs.ba_arc(torch, dev, K_NP)
-
-    def state_gap(a, b):
-        return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b))
-
-    for solver in ("dense", "cg"):
-        kw = dict(n_iters=20, damping=1e-4, solver=solver)
-        out[f"BA {solver} 20 steps"] = (
-            lambda kw=kw: pba.distributed_bundle_adjust(start, obs, k_arc, mesh, **kw),
-            lambda kw=kw: ba.bundle_adjust(start, obs, k_arc, **kw), state_gap,
-            cs.MESH_STATE_RTOL)
-
-    _gt, (er, et), edges = cs.pose_graph_scene(cs.PGO_NODES, cs.PGO_NODES // 2, cs.PGO_LOOP_EVERY,
-                                               noise=cs.PGO_NOISE)
-    poses = pg.Poses(torch.from_numpy(er).to(dev), torch.from_numpy(et).to(dev))
-    e = pg.pose_graph_edges_from_numpy(
-        {f: edges[f] for f in ("i", "j", "rel_rvec", "rel_tvec", "weight")}, dev)
-    kw = dict(n_iters=cs.MESH_PGO_ITERS, damping=1e-4)
-    out[f"PGO {cs.PGO_NODES} nodes {cs.MESH_PGO_ITERS} steps"] = (
-        lambda: ppg.distributed_pgo(poses, e, mesh, **kw),
-        lambda: pg.optimize_pose_graph(poses, e, solver="dense", **kw), gap, cs.MESH_POSE_ATOL)
-    return out
+    valid = rng.random((50, 512)) < 0.9
+    return dict(img=img, sift_imgs=[img, big], batch=frames,
+                keyframes=(torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev)),
+                arc=cs.ba_arc(torch, dev, K_NP), graph=cs.pgo_graph(torch, dev))
 
 
 def main(argv=None) -> int:
@@ -172,7 +93,8 @@ def main(argv=None) -> int:
     records = []
     for n_data in [d for d in (1, 2, 4, 8) if world % d == 0]:
         mesh = make_mesh(n_data, world // n_data)
-        for name, (sharded, unsharded, gap, tol) in _entries(torch, dev, mesh, args.size).items():
+        calls = cs.mesh_calls(torch, dev, mesh, **_inputs(torch, dev, args.size))
+        for name, (sharded, unsharded, gap, tol) in calls.items():
             err = torch.tensor([gap(sharded(), unsharded())], dtype=torch.float64, device=dev)
             dist.all_reduce(err, op=dist.ReduceOp.MAX)          # the worst rank's gap
             rec = {"world": world, "mesh": f"{n_data}x{world // n_data}", "entry": name,
