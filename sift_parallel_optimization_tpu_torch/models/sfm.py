@@ -517,7 +517,7 @@ def run_sfm(
     distributed solver (``parallel/pose_graph.distributed_pgo``);
     ``pair_mesh`` builds the covisibility table with the ring matcher
     (``parallel/matching.ring_pairwise_match_counts``). Both are
-    ``parallel/mesh.make_mesh`` meshes, and every rank runs the driver on
+    ``parallel/mesh.make_mesh`` meshes, and every rank calls ``run_sfm`` with
     the same features.
     """
     from sift_parallel_optimization_tpu_torch.parallel.mesh import check_mesh

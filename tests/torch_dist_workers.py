@@ -160,7 +160,7 @@ def sfm_features():
 
 def sfm_sampler(kind, frame, valid, n_hyp, n_pts):
     """Injected RANSAC draws: a numpy generator seeded by (kind, frame),
-    uniform over the valid slots, so every run of the driver draws alike."""
+    uniform over the valid slots, so every run of run_sfm draws alike."""
     import torch
 
     rng = np.random.default_rng([("init", "pnp", "loop").index(kind), frame])
@@ -438,7 +438,7 @@ def start(suite: str, worlds, tmp_path) -> tuple:
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), suite, tmp,
                              *map(str, worlds)],
                             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, start_new_session=True)
+                            text=True, process_group=0)
     return proc, outs, time.monotonic()
 
 

@@ -5,7 +5,7 @@ matcher's hops, the CG BA's reduce-scatter and all-gathers, the all-gathers
 of the global views), on every (data, spatial) factorization of the world.
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 tools/mesh_multicard.py \
-        --out chiprun_out/mesh_w4.jsonl
+        --out mesh_w4.jsonl
     python -m torch.distributed.run --standalone --nproc-per-node 4 tools/mesh_multicard.py \
         --device cpu --size 64          # the same on gloo CPU ranks, small
 
