@@ -139,6 +139,7 @@ PATH_KERNELS = {
     **{f"stream {name}": ("patch_gather", "score_tables") for name in "abc"},
     "bench": ("reference_dog_pyramid", "patch_gather", "score_tables"),
     "mesh": ("patch_gather_batched", "score_tables"),
+    "mesh dryrun": ("reference_dog_pyramid",),
 }
 # Every kernel entry point as (module of sift_parallel_optimization_tpu_torch.
 # ops, wrapper, name in the launch counts) with the arguments that make up
@@ -287,7 +288,9 @@ STREAM_RUNS = (("a", 512, 0, False), ("b", 256, 6, True), ("c", 512, 8, True))
 # largest magnitude; distributed PGO on the pgo phase's 200-node SE(3)
 # graph (MESH_PGO_ITERS dense steps) and close_loops(mesh=) on the sfm
 # phase's map (its written loops, at their current poses) within 1e-4;
-# dryrun_multichip(1) finite. Then each pair's per-call ms between CUDA
+# dryrun_multichip(1) finite, its launches counted as a path of its own
+# (PATH_KERNELS["mesh dryrun"]: kernel 1 once for each of its two 64^2
+# frames, held at that shape first). Then each pair's per-call ms between CUDA
 # events: the mesh layer's cost at world size 1.
 MESH_SIFT_ATOL, MESH_STATE_RTOL, MESH_POSE_ATOL, MESH_PGO_ITERS = 1e-5, 1e-4, 1e-4, 5
 BENCH_RUNS = (("pyramid", None), ("frontend,matching,tracking", 256))
@@ -1916,7 +1919,8 @@ def pgo_graph(torch, dev):
 
 def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
     """The distributed layer at world size 1 under NCCL (see
-    MESH_SIFT_ATOL); returns the mesh frontend's launches."""
+    MESH_SIFT_ATOL); returns the launches of its two counted paths, the
+    mesh frontend and the dry run."""
     import torch.distributed as dist
 
     from sift_parallel_optimization_tpu_torch.models import loop_closure
@@ -1978,7 +1982,9 @@ def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
             ss.reference_dog_pyramid_cuda(img64, 2, 3), ss.reference_dog_pyramid_plain(img64, 2, 3))),
             "mesh: kernel 1 at 64^2, 3 octaves, not bitwise equal to plain")
         held("reference_dog_pyramid", img64, 2, 3)
-        dry = dryrun_multichip(1, device=dev)
+        dry, dry_launches = counted(torch, counters, lambda: dryrun_multichip(1, device=dev))
+        check(dry_launches["reference_dog_pyramid"] == 2,
+              f"mesh: the dry run launched {dry_launches}, not kernel 1 once a frame")
         check(all(np.isfinite(v).all() for k, v in dry.items() if k != "mesh"),
               f"mesh: dryrun {dry}")
         checked_s = time.perf_counter() - t0
@@ -1998,10 +2004,11 @@ def mesh_phase(torch, dev, counters, frames, batched, sfm_out, arc):
           f"{min(f[0] for f in fracs):.4f}, descriptors {min(f[1] for f in fracs):.4f}, "
           f"launches {launches}; gaps to the unsharded results (tolerance): " + "; ".join(
               f"{k} {g:.2e} ({calls[k][3]})" for k, g in gaps.items())
-          + f"; dryrun {dry['mesh']} finite; checks {checked_s:.1f} s; per call ms, "
+          + f"; dryrun {dry['mesh']} finite, launches {dry_launches}; checks "
+          f"{checked_s:.1f} s; per call ms, "
           f"sharded / unsharded: " + "; ".join(f"{k} {a:.3f} / {b:.3f}"
                                                for k, (a, b) in times.items()))
-    return launches
+    return {"mesh": launches, "mesh dryrun": dry_launches}
 
 
 def main() -> int:
@@ -2338,11 +2345,10 @@ def main() -> int:
     sfm_out = sfm_phase(torch, dev)
     arc = sfm_cpu_phase(torch, dev)
 
-    # 7e'. The distributed layer on a world-size-1 NCCL mesh, its frontend's
-    # launches counted as a path of their own.
-    path_launches["mesh"] = mesh_phase(torch, dev, counters, frames,
-                                       feats[f"batched {FRONTEND_CONFIGS[0][0]}"][1], sfm_out,
-                                       arc)
+    # 7e'. The distributed layer on a world-size-1 NCCL mesh, the launches of
+    # its frontend and of its dry run counted as paths of their own.
+    path_launches.update(mesh_phase(torch, dev, counters, frames,
+                                    feats[f"batched {FRONTEND_CONFIGS[0][0]}"][1], sfm_out, arc))
     del sfm_out, arc
 
     # 7f. The benchmark matrix through cli bench, its launches counted as

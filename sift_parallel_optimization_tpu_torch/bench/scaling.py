@@ -5,8 +5,9 @@ GaussDePyramid-pThread.h:310-326), with the mesh as the knob.
 * The data-parallel frontend: a batch of frames split over the ``data`` axis
   of n ranks, each rank one OS process (``python -m
   sift_parallel_optimization_tpu_torch.bench.scaling --child ...``) that
-  runs the batched frontend on its shard, its matrices held (the body of
-  ``parallel/frontend.batched_extract_features(mesh=)``). On the card each
+  runs the batched frontend on its shard (``parallel/frontend.local_frames``,
+  the split of ``batched_extract_features(mesh=)``), its matrices held
+  across the timed batches. On the card each
   rank takes one card under NCCL, so only rank counts up to
   ``torch.cuda.device_count()`` run; on the CPU the ranks are gloo
   processes. A record is the best of a few synchronized batches on the
@@ -48,12 +49,8 @@ def _child(args) -> int:
     import torch.distributed as dist
 
     from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
-    from sift_parallel_optimization_tpu_torch.parallel.mesh import (
-        axis_index,
-        data_size,
-        initialize_distributed,
-        make_mesh,
-    )
+    from sift_parallel_optimization_tpu_torch.parallel.frontend import local_frames
+    from sift_parallel_optimization_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 
     if args.device == "cpu":
         torch.set_num_threads(1)
@@ -67,8 +64,7 @@ def _child(args) -> int:
     cfg = sift_config(args.size, max_octaves=4)
     frames = torch.from_numpy(np.random.default_rng(0).random(
         (args.batch, args.size, args.size), np.float32)).to(dev)
-    b = args.batch // data_size(mesh)
-    local = frames[axis_index(mesh, "data") * b:][:b]
+    local = local_frames(frames, mesh)
     fe = SiftFrontend(cfg, args.size, args.size, max_keypoints=128, device=dev)
 
     def sync():

@@ -41,9 +41,10 @@ full fp32, ``config.PyramidConfig``). The frame-batch sweep's ``per_frame``
 path, a loop of ``SiftFrontend`` calls, is the port's form of JAX's ``vmap``
 path (each record says so in ``jax_path``). The mesh-shape sweep runs over
 every (data, spatial) factorization of the default process group's world
-size (one process: 1x1, the group formed and destroyed by the sweep);
-where the sharded pyramid's NCCL calls refuse a graph capture, its record
-is timed eagerly between CUDA events and ``chain`` says so.
+size (one process: 1x1, the group formed and destroyed by the sweep),
+each shape through the same captured chains as every other record (the
+NCCL calls of a 1x1 mesh capture on the card); a capture that is refused
+raises.
 """
 
 from __future__ import annotations
@@ -59,7 +60,6 @@ from sift_parallel_optimization_tpu_torch.utils.device import resolve_device
 from sift_parallel_optimization_tpu_torch.utils.profiling import (
     MetricsWriter,
     chained_slope_ms,
-    cuda_time_ms,
     device_breakdown,
     profile_device,
     slope_ms,
@@ -575,17 +575,7 @@ def _mesh_sweep(rec: _Records, img: torch.Tensor, size: int) -> None:
             def step(x, pyr=pyr):
                 return sum(o.to_local().sum() for o in pyr(x))
 
-            try:
-                ms, chain = rec.slope(step, img)
-            except RuntimeError as e:
-                if rec.dev.type != "cuda":
-                    raise
-                # The NCCL calls refused the graph capture: per call between
-                # CUDA events (host enqueue included), and the record says so.
-                torch.cuda.synchronize(rec.dev)
-                ms = cuda_time_ms(step, img, warmup=3, iters=20)
-                chain = _chain_fields({"chain": f"eager: graph capture refused "
-                                                f"({type(e).__name__}: {str(e)[:80]})"})
+            ms, chain = rec.slope(step, img)
             rec.write(f"matrix_mesh_shape_pyramid_ms_{size}", round(ms, 4), "ms",
                       mesh=f"{n_data}x{n // n_data}", **chain)
     finally:

@@ -64,14 +64,20 @@ def batched_extract_features(
     if imgs.dim() != 3:
         raise ValueError(f"expected (B, H, W) frames, got {tuple(imgs.shape)}")
     if mesh is not None:
-        n = data_size(mesh)
-        if imgs.shape[0] % n:
-            raise ValueError(f"{imgs.shape[0]} frames do not split over a data axis of {n}")
-        b = imgs.shape[0] // n
-        imgs = imgs[axis_index(mesh, "data") * b:][:b]
+        imgs = local_frames(imgs, mesh)
     fe = SiftFrontend(cfg, imgs.shape[1], imgs.shape[2], max_keypoints=max_keypoints,
                       dual_orientation=dual_orientation, device=device, **thresholds)
     return fe(imgs)
+
+
+def local_frames(imgs: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's shard of the (B, H, W) frames every rank holds: its B / n
+    consecutive frames, n the ``data`` axis size (B a multiple of n)."""
+    n = data_size(mesh)
+    if imgs.shape[0] % n:
+        raise ValueError(f"{imgs.shape[0]} frames do not split over a data axis of {n}")
+    b = imgs.shape[0] // n
+    return imgs[axis_index(mesh, "data") * b:][:b]
 
 
 def gather_features(feats: Features, mesh) -> Features:

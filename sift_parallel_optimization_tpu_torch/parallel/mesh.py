@@ -230,8 +230,7 @@ def reduce_scatter(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor
     if t.shape[0] % n:
         raise ValueError(f"dim 0 ({t.shape[0]}) does not split {n} ways")
     out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
-    fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-    fn(out, t.contiguous(), group=axis_group(mesh, axis))
+    dist.reduce_scatter_tensor(out, t.contiguous(), group=axis_group(mesh, axis))
     return out
 
 
@@ -243,8 +242,7 @@ def all_gather(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     if src.dtype == torch.bool:
         return all_gather(src.to(torch.uint8), mesh, axis).to(torch.bool)
     out = src.new_empty((n * src.shape[0], *src.shape[1:]))
-    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    fn(out, src, group=axis_group(mesh, axis))
+    dist.all_gather_into_tensor(out, src, group=axis_group(mesh, axis))
     return out
 
 
