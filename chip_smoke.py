@@ -10,7 +10,11 @@ constant, two-level and NaN DoGs), drives
 the entry points (the REFERENCE DoG pyramid at 512^2, S=2; the SIFT
 frontend at 512^2/K=512 and 1024^2/K=2048, S=3, on its default block-reduce
 detection branch; the frontend with fused descriptor sampling at
-512^2/K=512; the batched frontend on 8 frames at both sizes; a matched and
+512^2/K=512; the batched frontend on 8 frames at both sizes; the
+blocked-band blur against the dense one at 512^2, 1024^2 and 376x1241 and
+the form the 512^2 pyramid takes; the grouped detection entry point on
+256^2 and 512^2 frames under three groupings and both selection branches
+against its CPU run; a matched and
 verified frame pair; the two-view bootstrap with a PnP registration of a
 third view at 2048 keypoint slots per frame; incremental SfM with loop
 closure on 50 keyframes, 128 landmarks a frame and 512 feature slots, on the
@@ -140,6 +144,7 @@ PATH_KERNELS = {
     "bench": ("reference_dog_pyramid", "patch_gather", "score_tables"),
     "mesh": ("patch_gather_batched", "score_tables"),
     "mesh dryrun": ("reference_dog_pyramid",),
+    "groups": ("score_tables",),
 }
 # Every kernel entry point as (module of sift_parallel_optimization_tpu_torch.
 # ops, wrapper, name in the launch counts) with the arguments that make up
@@ -293,6 +298,25 @@ STREAM_RUNS = (("a", 512, 0, False), ("b", 256, 6, True), ("c", 512, 8, True))
 # frames, held at that shape first). Then each pair's per-call ms between CUDA
 # events: the mesh layer's cost at world size 1.
 MESH_SIFT_ATOL, MESH_STATE_RTOL, MESH_POSE_ATOL, MESH_PGO_ITERS = 1e-5, 1e-4, 1e-4, 5
+# The banded phase: the blocked-band blur bank (core/pyramid_ref.
+# blur_bank_banded) against the dense Toeplitz products on the card, the
+# octave bank of sift_config's S=3 (5 sigmas) on a seeded [0, 1] image of
+# each size, within the JAX package's bound (tests/test_pyramid_ref.py:
+# 158-215: f32 summation order); each form's device ms a call; the cutoff;
+# and the 512^2 SiftPyramid's octave 0 bitwise equal to a freshly built bank
+# of the form the dispatch names, and not to one of the other form.
+BANDED_SIZES, BANDED_ATOL = ((512, 512), (1024, 1024), (376, 1241)), 2e-6
+# The groups phase: models/detect.detect_octave_groups_batched on the card
+# on B=2 frames' DoGs at each size, three groupings (one native group an
+# octave; the octaves of side <= 64 in one canvas group; groups out of id
+# order, native and canvas mixed, natives after a canvas), both selection
+# branches, slot for slot against the same call on CPU tensors (the plain
+# versions of the same branch on the same DoGs: valid, octave and scale
+# equal, x, y, sigma and score within 1e-4, exp2's ulp on either side), 48
+# slots a frame: fewer than the candidates, so the top-k cut matters.
+# Kernel 3 takes the native groups on the block-reduce branch: its launches
+# are the path "groups", each launch's shape held to the plain version.
+GROUP_SIZES, GROUP_FRAMES, GROUP_CAPACITY, GROUP_ATOL = (256, 512), 2, 48, 1e-4
 BENCH_RUNS = (("pyramid", None), ("frontend,matching,tracking", 256))
 BENCH_RECORDS = 12
 THR = 0.04 / 3          # detect.CONTRAST_THRESHOLD / S
@@ -394,10 +418,12 @@ def frontend_dogs(torch, dev, size, S, n_frames):
     from sift_parallel_optimization_tpu_torch.models import frontend
     from sift_parallel_optimization_tpu_torch.utils import native
 
+    from sift_parallel_optimization_tpu_torch.core.pyramid_ref import dog_planes
+
     fe = frontend.SiftFrontend(frontend.sift_config(size, S=S), device=dev)
     batch = torch.stack([torch.from_numpy(native.synth_frame(size, i, seed=0))
                          for i in range(n_frames)]).to(dev)
-    return [g[:, 1:] - g[:, :-1] for g in fe.pyramid(batch)]
+    return [dog_planes(g) for g in fe.pyramid(batch)]
 
 
 def flat_frames(torch, dogs):
@@ -1811,6 +1837,129 @@ def sfm_cpu_phase(torch, dev):
     return start, obs, K
 
 
+def banded_phase(torch, dev):
+    """The blocked-band blur against the dense products on the card, both
+    forms' device ms a call, and the form the 512^2 pyramid takes."""
+    from sift_parallel_optimization_tpu_torch.core import pyramid_ref as pr
+    from sift_parallel_optimization_tpu_torch.models.frontend import sift_config
+    from sift_parallel_optimization_tpu_torch.utils.profiling import device_kernel_ms
+
+    rel = pr._octave_scale_sigmas(sift_config(512))
+    lines = []
+    for h, w in BANDED_SIZES:
+        x = torch.from_numpy(np.random.default_rng(h * w).random((h, w), np.float32)).to(dev)
+        bank_h, bank_w = (pr._blur_stack(n, rel, torch.float32, dev) for n in (h, w))
+        rows, cols, r, bw = pr._band_operands(h, w, rel)
+        rows, cols = (torch.from_numpy(a).to(dev) for a in (rows, cols))
+        got = pr.blur_bank_banded(x, rel)
+        want = pr.blur_bank(x, bank_h, bank_w)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(got.shape == want.shape and err <= BANDED_ATOL,
+              f"banded: {h}x{w} banded vs dense {err:.3e} (atol {BANDED_ATOL})")
+        dense_ms = device_kernel_ms(pr.blur_bank, x, bank_h, bank_w, iters=20)
+        banded_ms = device_kernel_ms(pr._blur_banded, x, rows, cols, r, bw, iters=20)
+        lines.append(f"{h}x{w}: max_abs_err {err:.3e}, device dense {dense_ms:.4f} ms, "
+                     f"banded {banded_ms:.4f} ms a call")
+    img = torch.from_numpy(native_frame(512)).to(dev)
+    pyr = pr.SiftPyramid(sift_config(512), 512, 512, device=dev)
+    named = "banded" if pr.banded_form(512, 512) else "dense"
+    check(pyr.forms[:2] == [named, named], f"banded: the 512^2 pyramid's forms {pyr.forms}")
+    x0 = pyr.base(img)[0]
+    octave0 = pyr(img)[0]
+    saved = pr._BANDED_MIN_SIZE
+    try:
+        pr._BANDED_MIN_SIZE = 1
+        banded = pr.BlurBank(512, 512, rel, True, device=dev)
+        pr._BANDED_MIN_SIZE = 1 << 30
+        dense = pr.BlurBank(512, 512, rel, True, device=dev)
+    finally:
+        pr._BANDED_MIN_SIZE = saved
+    took = {"banded": same_bits(torch, octave0, banded(x0)),
+            "dense": same_bits(torch, octave0, dense(x0))}
+    check(took[named] and not took["banded" if named == "dense" else "dense"],
+          f"banded: the 512^2 pyramid's octave 0 took {took}, the dispatch names {named}")
+    phase("banded", f"blur_bank_banded vs the dense bank, octave bank of S=3 ({len(rel)} "
+          f"sigmas), within {BANDED_ATOL}: " + "; ".join(lines)
+          + f"; _BANDED_MIN_SIZE = {pr._BANDED_MIN_SIZE}; SiftPyramid 512^2 forms "
+          f"{pyr.forms} (octave 0 bitwise equal to a {named} bank)")
+
+
+def native_frame(size, i=0):
+    from sift_parallel_optimization_tpu_torch.utils import native
+
+    return native.synth_frame(size, i, seed=0)
+
+
+def group_layouts(n_octaves, sides):
+    """The groups phase's groupings of an n-octave pyramid, by octave id."""
+    tail = [o for o in range(n_octaves) if sides[o] <= 64]
+    return {
+        "native": [[o] for o in range(n_octaves)],
+        "canvas <= 64": [[o] for o in range(n_octaves) if sides[o] > 64] + [tail],
+        "mixed": [[2], [0], [1, 3]] + [[o] for o in range(n_octaves - 1, 3, -1)],
+    }
+
+
+def groups_phase(torch, dev, counters):
+    """detect_octave_groups_batched on the card against the same call on CPU
+    tensors, every grouping on both branches; the card's runs counted as the
+    path "groups" (kernel 3 takes the native groups), each kernel 3 shape
+    held to the plain version first."""
+    from sift_parallel_optimization_tpu_torch.core.pyramid_ref import SiftPyramid, dog_planes
+    from sift_parallel_optimization_tpu_torch.models import detect
+    from sift_parallel_optimization_tpu_torch.models.frontend import sift_config
+    from sift_parallel_optimization_tpu_torch.ops import score_tables as st
+
+    runs, lines = [], []
+    for size in GROUP_SIZES:
+        cfg = sift_config(size)
+        batch = torch.stack([torch.from_numpy(native_frame(size, i))
+                             for i in range(GROUP_FRAMES)]).to(dev)
+        dogs = [dog_planes(g) for g in SiftPyramid(cfg, size, size, device=dev)(batch)]
+        for name, layout in group_layouts(len(dogs), [d.shape[-1] for d in dogs]).items():
+            natives = [dogs[g[0]] for g in layout if len(g) == 1]
+            flat = torch.cat([d.reshape(GROUP_FRAMES, -1) for d in natives], dim=1)
+            shapes = [tuple(d.shape[1:]) for d in natives]
+            got = st.score_block_top2_cuda(flat, shapes, THR, EDGE_RATIO, 1)
+            want = st.score_block_top2_plain(flat, shapes, THR, EDGE_RATIO, 1)
+            torch.cuda.synchronize()
+            check(all(same_bits(torch, g, w) for g, w in zip(got, want)),
+                  f"groups: kernel 3 not bitwise equal to plain for {size}^2 {name}")
+            held("score_tables", flat, shapes, THR, EDGE_RATIO, 1)
+            runs += [(size, cfg, name, layout, dogs, approx) for approx in (False, True)]
+
+    def drive():
+        return [detect.detect_octave_groups_batched(
+            [[(o, dogs[o]) for o in g] for g in layout], cfg, GROUP_CAPACITY,
+            use_approx_topk=approx) for _size, cfg, _n, layout, dogs, approx in runs]
+
+    outs, launches = counted(torch, counters, drive)
+    check(launches["score_tables"] == sum(approx for *_r, approx in runs),
+          f"groups: kernel 3 launched {launches['score_tables']} times, once a block-reduce "
+          f"call expected")
+    for (size, cfg, name, layout, dogs, approx), kp in zip(runs, outs):
+        cpu = detect.detect_octave_groups_batched(
+            [[(o, dogs[o].cpu()) for o in g] for g in layout], cfg, GROUP_CAPACITY,
+            use_approx_topk=approx)
+        valid = cpu.valid
+        check(torch.equal(kp.valid.cpu(), valid), f"groups {size}^2 {name}: valid slots")
+        for f in ("octave", "scale"):
+            check(torch.equal(getattr(kp, f).cpu()[valid], getattr(cpu, f)[valid]),
+                  f"groups {size}^2 {name}: {f}")
+        err = max(float((getattr(kp, f).cpu() - getattr(cpu, f)).abs().max())
+                  for f in ("x", "y", "sigma", "score"))
+        check(err <= GROUP_ATOL, f"groups {size}^2 {name}: x/y/sigma/score differ by {err:.3e}")
+        n = [int(c) for c in kp.count()]
+        check(min(n) > 0, f"groups {size}^2 {name}: a frame without keypoints")
+        lines.append(f"{size}^2 {name} {'block-reduce' if approx else 'exact'}: "
+                     f"{n} keypoints, max_abs_err {err:.1e}")
+    phase("groups", f"detect_octave_groups_batched, B={GROUP_FRAMES}, capacity "
+          f"{GROUP_CAPACITY}, card vs CPU slot for slot (atol {GROUP_ATOL}): " + "; ".join(lines)
+          + f"; kernel 3 launches {launches['score_tables']}")
+    return launches
+
+
 def mesh_calls(torch, dev, mesh, img, sift_imgs, batch, keyframes, arc, graph):
     """Every sharded entry point of the distributed layer beside its
     unsharded counterpart on ``mesh``: {name: (sharded call, unsharded
@@ -2323,6 +2472,11 @@ def main() -> int:
               f"ops/frame ({bnk:.0f} per batch); per-frame {ms:.3f} ms/frame, max {mx:.3f} "
               f"(n={n}), device {dms:.3f} ms in {nk:.0f} ops/frame")
         del batch
+
+    # 7b'. The blocked-band blur against the dense one and the dispatch;
+    # the grouped detection entry points on the card against the CPU.
+    banded_phase(torch, dev)
+    path_launches["groups"] = groups_phase(torch, dev, counters)
 
     # 7c. A matched, verified pair and the two-view bootstrap.
     pair_phase(torch, dev, feats["batched 512"][1])

@@ -188,9 +188,12 @@ def sift_pyramid_model(cfg: PyramidConfig) -> CostModel:
 
     Algorithmic flops: 2 passes x 2*(2r+1) flops per pixel per scale (the
     taps), charged as fp32 matmul work; minimal bytes: read each octave base
-    once, write the S+3 planes once. The port's dense Toeplitz products
-    issue far more (a 512-wide product per pixel), so its %SOL reads low:
-    that is the distance to the banded blur, not a slip of the floor.
+    once, write the S+3 planes once. The port's products issue more: from
+    a long side of ``core.pyramid_ref._BANDED_MIN_SIZE`` up, the blocked-band
+    form (a (64 + 2r)-long product per pixel a pass, r the largest radius,
+    scale 0 carried as an identity plane), below it the dense Toeplitz form
+    (an N-long product), so its %SOL reads low: the distance to the taps
+    alone, not a slip of the floor.
     """
     rel = _octave_scale_sigmas(cfg)
     bytes_ = 0.0

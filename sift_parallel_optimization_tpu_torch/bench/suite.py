@@ -189,6 +189,7 @@ def bench_stages(writer: MetricsWriter, size: int = 512, max_keypoints: int = 51
     branch). Chains of 10 / 50 steps, stretched until the long one takes
     60 ms (the JAX suite's 50 / 400 would put ~216k kernels of the frontend
     into one graph)."""
+    from sift_parallel_optimization_tpu_torch.core.pyramid_ref import dog_planes
     from sift_parallel_optimization_tpu_torch.models.detect import (
         CONTRAST_THRESHOLD,
         EDGE_RATIO,
@@ -205,7 +206,7 @@ def bench_stages(writer: MetricsWriter, size: int = 512, max_keypoints: int = 51
     fe = SiftFrontend(cfg, max_keypoints=max_keypoints, device=rec.dev)
 
     def dogs(x):
-        return [g[1:] - g[:-1] for g in fe.pyramid(x)]
+        return [dog_planes(g) for g in fe.pyramid(x)]
 
     def pyr(x):
         return sum(o.sum() for o in fe.pyramid(x))

@@ -5,11 +5,14 @@
   window per scale, with adjacent-scale DoG (GuassDePyramid.h:60-149). On a
   CUDA tensor :func:`reference_dog_pyramid` is one launch of the fused kernel
   in ``ops/scale_space.py``; the functions here are its plain version.
-* SIFT mode: a true Gaussian scale space. Blurs are dense edge-clamped
-  Toeplitz products ``B_h^T X B_w`` in full fp32 (``torch.matmul``; no cuDNN
-  convolution, which defaults to TF32 on Hopper), the octave cascade is the
-  plain blur -> subsample loop, and the blur matrices live on the device as
-  buffers of :class:`SiftPyramid`.
+* SIFT mode: a true Gaussian scale space. Blurs are edge-clamped Toeplitz
+  products ``B_h^T X B_w`` in full fp32 (no cuDNN convolution, which
+  defaults to TF32 on Hopper): dense ``torch.matmul`` products, or, for an
+  octave whose long side is at least :data:`_BANDED_MIN_SIZE`, the
+  blocked-band form (:func:`blur_bank_banded`: batched products over the
+  band's 64-column blocks only). The octave cascade is the plain blur ->
+  subsample loop, and the matrices live on the device as buffers of
+  :class:`SiftPyramid`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sift_parallel_optimization_tpu_torch.config import (
@@ -67,11 +71,18 @@ def reference_dog_octave(base: torch.Tensor, S: int) -> torch.Tensor:
     return base[None, :, :] * window_dog_planes(f)
 
 
+def strided_subsample(img: torch.Tensor, step: int) -> torch.Tensor:
+    """``img[..., ::step, ::step]``: every ``step``-th row and column from the
+    first, ceil(n / step) of each (the samples of the JAX package's 1x1-window,
+    stride-``step`` VALID reduce_window). A view."""
+    return img[..., ::step, ::step]
+
+
 def reference_subsample(img: torch.Tensor, octave: int) -> torch.Tensor:
     """Octave base: the 2^o-strided subsample of the ORIGINAL image."""
     step = 2**octave
     size = img.shape[0] // step
-    return img[::step, ::step][:size, :size]
+    return strided_subsample(img, step)[:size, :size]
 
 
 def reference_dog_pyramid(
@@ -105,6 +116,33 @@ def gaussian_kernel_1d(sigma: float, dtype=torch.float32, device=None) -> torch.
     x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
     k = torch.exp(-(x**2) / (2.0 * sigma * sigma))
     return (k / k.sum()).to(dtype)
+
+
+def separable_taps(ext: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """(..., h + 2r, W) rows carrying r rows of context above and below ->
+    (..., h, W): each row blurred along W with edge-clamped columns, then the
+    taps along H over the context; each pass a sum of shifted slices in the
+    rows' dtype (no convolution library call: cuDNN runs convolutions in
+    TF32 on the card). The arithmetic of :func:`separable_blur` and of the
+    row-sharded blur, which differ only in where the context rows come from."""
+    k = taps.shape[0]
+    r = k // 2
+    taps = taps.to(ext.dtype)
+    w = ext.shape[-1]
+    edge = (*ext.shape[:-1], r)
+    xw = torch.cat([ext[..., :1].expand(edge), ext, ext[..., -1:].expand(edge)], dim=-1)
+    x = sum(taps[t] * xw[..., t:t + w] for t in range(k))
+    h = ext.shape[-2] - 2 * r
+    return sum(taps[t] * x[..., t:t + h, :] for t in range(k))
+
+
+def separable_blur(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Separable Gaussian blur of (..., H, W) with replicated edges: rows,
+    then columns, with the (2r+1,) ``taps``."""
+    r = taps.shape[0] // 2
+    edge = (*x.shape[:-2], r, x.shape[-1])
+    ext = torch.cat([x[..., :1, :].expand(edge), x, x[..., -1:, :].expand(edge)], dim=-2)
+    return separable_taps(ext, taps)
 
 
 def _octave_scale_sigmas(cfg: PyramidConfig) -> list[float]:
@@ -167,6 +205,159 @@ def check_fp32_matmul(x: torch.Tensor) -> None:
         )
 
 
+# ---------------------------------------------------------------------------
+# The blocked-band blur (the JAX package's blur_bank_banded)
+# ---------------------------------------------------------------------------
+
+# The band's column-block width, as in the JAX package.
+BAND_WIDTH = 64
+# An octave (and the base blur) whose long side is at least this many pixels
+# blurs in the blocked-band form, a smaller one in the dense form. The rule
+# reads the shape only, so the card and the CPU take the same form. On the
+# H100 the banded form wins every call from 256^2 up (tools/banded_cutoff.py;
+# PERF.md §6, PR 11), but below 512 the JAX package blurs densely, and a
+# 256^2 octave in the other form moves keypoints 1.1e-4 px off the
+# reference's: the cutoff stays the JAX package's.
+_BANDED_MIN_SIZE = 512
+
+
+def _blocks_of(mats, bw: int, r: int, nb: int) -> np.ndarray:
+    """(len(mats), nb, bw + 2r, bw) column blocks of (size, size) matrices:
+    block jb holds rows [jb*bw - r, jb*bw + bw + r) of columns [jb*bw,
+    (jb+1)*bw), zero outside the matrix (``nb`` may pass the last column)."""
+    size = mats[0].shape[0]
+    pad = nb * bw - size
+    out = np.zeros((len(mats), nb, bw + 2 * r, bw), np.float32)
+    for i, m in enumerate(mats):
+        bp = np.pad(m, ((r, r + pad), (0, pad)))
+        for jb in range(nb):
+            out[i, jb] = bp[jb * bw:jb * bw + bw + 2 * r, jb * bw:(jb + 1) * bw]
+    return out
+
+
+def _band_blocks_np(size: int, sigmas, bw: int, r: int) -> np.ndarray:
+    """(S, ceil(size / bw), bw + 2r, bw) band blocks of the blur matrices:
+    block jb holds B[jb*bw - r : jb*bw + bw + r, jb*bw : (jb+1)*bw], zero
+    padded, every nonzero of column block jb when B's band half-width is at
+    most r (the JAX package's layout, entry for entry)."""
+    return _blocks_of([_blur_matrix_np(size, s) for s in sigmas], bw, r, -(-size // bw))
+
+
+def _band_operands(h: int, w: int, sigmas, bw: int = BAND_WIDTH, with_input: bool = False):
+    """The two operands of :func:`_blur_banded` for (h, w) images, with one
+    radius r (the largest of ``sigmas``) and the block width widened to 2r
+    where the band is wider than ``bw``. ``with_input`` makes the identity
+    the first plane (the input itself, exactly: one product by 1.0, the rest
+    by 0.0). Returns (rows (nbh, bw * n, bw + 2r): block ib's n planes
+    transposed, row v * n + p; cols (n * nbw, bw + 2r, bw): plane p's column
+    block jb at p * nbw + jb; r; bw), with one zero block past each axis'
+    last (nbh = ceil(h / bw) + 1, nbw = ceil(w / bw) + 1)."""
+    r = max(_taps_np(s)[0] for s in sigmas)
+    bw = max(bw, 2 * r)
+    k = bw + 2 * r
+
+    def mats(size):
+        eye = [np.eye(size, dtype=np.float32)] if with_input else []
+        return eye + [_blur_matrix_np(size, s) for s in sigmas]
+
+    blk_h = _blocks_of(mats(h), bw, r, -(-h // bw) + 1)             # (n, nbh, k, bw)
+    n, nbh = blk_h.shape[:2]
+    rows = np.ascontiguousarray(blk_h.transpose(1, 3, 0, 2)).reshape(nbh, bw * n, k)
+    blk_w = _blocks_of(mats(w), bw, r, -(-w // bw) + 1)             # (n, nbw, k, bw)
+    return rows, blk_w.reshape(-1, k, bw), r, bw
+
+
+def _blur_banded(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, r: int,
+                 bw: int) -> torch.Tensor:
+    """(..., H, W) -> (..., n, H, W) through :func:`_band_operands`' blocks:
+    one pad and two batched products, each over windows of the previous
+    result viewed in place (no copy of a window).
+
+    Each frame sits in an (hx, wx) slot, r rows and r columns in from its
+    corner (hx = nbh * bw, wx = nbw * bw), padded by replication. A window
+    reads past the image only where the blocks hold zeros (the matrices end
+    at the image's edge), so any finite value there gives the dense result;
+    replication writes every slot value in one kernel. Pass 1 (rows): the
+    window of row block ib, slot rows [ib*bw, ib*bw + bw + 2r), times block
+    ib transposed, gives its bw output rows for every plane, interleaved by
+    row: t[row, plane, column]. Windows run on into the next frame's slot
+    (zero blocks meet them), so the frames stack as windows b * nbh + ib;
+    the last (an image's trailing zero block) is not computed. Pass 2
+    (columns): window (plane p, column block jb) starts p * wx + jb * bw
+    floats into each row of t, one stride for every (p, jb); it runs on into
+    plane p + 1 (zero rows of the block meet it), and the last, a zero
+    block of the last plane, is not computed. The result is laid out as
+    (row, plane, column) and returned as a (..., n, H, W) view of it."""
+    check_fp32_matmul(x)
+    lead, (h, w) = x.shape[:-2], x.shape[-2:]
+    b = math.prod(lead)
+    nbh, k = rows.shape[0], rows.shape[2]
+    n = rows.shape[1] // bw
+    nbw = cols.shape[0] // n
+    hx, wx = nbh * bw, nbw * bw
+    xr = F.pad(x.reshape(b, h, w), (r, wx - w - r, r, hx - h - r), mode="replicate")
+    n_win = b * nbh - 1
+    win = xr.as_strided((n_win, k, wx), (bw * wx, wx, 1))
+    blocks = rows[:n_win] if b == 1 else rows.repeat(b, 1, 1)[:n_win]
+    t = torch.bmm(blocks, win)                              # (n_win, bw * n, wx)
+    m, q = n_win * bw, n * nbw - 1
+    out = x.new_empty((b * hx, n, wx))
+    torch.bmm(t.as_strided((q, m, k), (bw, n * wx, 1)), cols[:q],
+              out=out.as_strided((q, m, bw), (bw, n * wx, 1)))
+    return out.view(b, hx, n, wx).permute(0, 2, 1, 3)[:, :, :h, :w].reshape(*lead, n, h, w)
+
+
+def blur_bank_banded(base: torch.Tensor, sigmas, bw: int = BAND_WIDTH) -> torch.Tensor:
+    """Blocked-band form of the blur bank: (..., H, W) -> (..., len(sigmas),
+    H, W), out_s = B^H_s^T @ x @ B^W_s with only the band's blocks
+    multiplied (the 2 * ceil(3 sigma) + 1 nonzero diagonals of each matrix,
+    one radius for the call: the largest). Each axis is padded up to its
+    block grid, so H != W and sides that are not a multiple of ``bw`` work.
+    Equal to the dense products up to fp32 summation order. Builds the
+    blocks on the host per call; :class:`SiftPyramid` holds them."""
+    h, w = base.shape[-2:]
+    rows, cols, r, bw = _band_operands(h, w, sigmas, bw)
+    as_x = dict(dtype=base.dtype, device=base.device)
+    return _blur_banded(base, torch.from_numpy(rows).to(**as_x),
+                        torch.from_numpy(cols).to(**as_x), r, bw)
+
+
+def banded_form(h: int, w: int) -> bool:
+    """Whether an (h, w) blur takes the blocked-band form (long side at
+    least :data:`_BANDED_MIN_SIZE`) or the dense one."""
+    return max(h, w) >= _BANDED_MIN_SIZE
+
+
+class BlurBank(nn.Module):
+    """One blur call of the SIFT pyramid on (..., h, w) inputs, its matrices
+    held as buffers: the dense Toeplitz pair or, where :func:`banded_form`,
+    the band blocks. ``with_input`` puts the input itself first (an octave:
+    scale 0, then the blurs). The forward returns (..., n, h, w)."""
+
+    def __init__(self, h: int, w: int, sigmas, with_input: bool, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.banded = banded_form(h, w)
+        self.with_input = with_input
+        if self.banded:
+            rows, cols, self.r, self.bw = _band_operands(h, w, sigmas, with_input=with_input)
+            self.register_buffer("rows", torch.from_numpy(rows).to(device=device, dtype=dtype))
+            self.register_buffer("cols", torch.from_numpy(cols).to(device=device, dtype=dtype))
+        else:
+            self.register_buffer("bank_h", _blur_stack(h, sigmas, dtype, device))
+            self.register_buffer("bank_w", _blur_stack(w, sigmas, dtype, device))
+
+    @property
+    def form(self) -> str:
+        return "banded" if self.banded else "dense"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.banded:
+            return _blur_banded(x, self.rows, self.cols, self.r, self.bw)
+        out = blur_bank(x, self.bank_h, self.bank_w)
+        return torch.cat([x[..., None, :, :], out], dim=-3) if self.with_input else out
+
+
 class SiftPyramid(nn.Module):
     """SIFT Gaussian pyramid of (height, width) frames with its blur matrices
     held on the device as buffers.
@@ -174,6 +365,10 @@ class SiftPyramid(nn.Module):
     Octave 0 scale 0 is the input brought from ``assumed_blur`` up to sigma0;
     scales 1..S+2 are composed blurs of the octave base; octave o+1 starts
     from octave o's scale S subsampled by 2 (ceil halving of each side).
+    Each blur takes the form :func:`banded_form` names for its shape
+    (:attr:`forms`: the base blur's, then each octave's). An octave comes
+    back as a view: (S+3, H_o, W_o), its planes interleaved by row where
+    banded (:func:`dog_planes` makes a contiguous DoG of it).
     """
 
     def __init__(self, cfg: PyramidConfig, height: int, width: int | None = None,
@@ -189,11 +384,12 @@ class SiftPyramid(nn.Module):
         for _ in range(cfg.n_octaves):
             self.shapes.append((h, w))
             h, w = -(-h // 2), -(-w // 2)
-        self.register_buffer("base_h", _blur_stack(height, [base_sigma], dt, device))
-        self.register_buffer("base_w", _blur_stack(width, [base_sigma], dt, device))
-        for o, (h, w) in enumerate(self.shapes):
-            self.register_buffer(f"bank_h{o}", _blur_stack(h, rel, dt, device))
-            self.register_buffer(f"bank_w{o}", _blur_stack(w, rel, dt, device))
+        self.base = BlurBank(height, width, [base_sigma], False, dt, device)
+        self.banks = nn.ModuleList(BlurBank(h, w, rel, True, dt, device) for h, w in self.shapes)
+
+    @property
+    def forms(self) -> list[str]:
+        return [self.base.form] + [b.form for b in self.banks]
 
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
         """(H, W) image -> list of (S+3, H_o, W_o) Gaussian octaves; (B, H, W)
@@ -201,14 +397,20 @@ class SiftPyramid(nn.Module):
         if img.dim() not in (2, 3) or tuple(img.shape[-2:]) != self.shapes[0]:
             raise ValueError(f"expected {self.shapes[0]} images, got {tuple(img.shape)}")
         check_fp32_matmul(img)
-        x = blur_bank(img.to(self.cfg.dtype), self.base_h, self.base_w)[..., 0, :, :]
+        x = self.base(img.to(self.cfg.dtype))[..., 0, :, :]
         octaves = []
-        for o in range(len(self.shapes)):
-            bh, bw = getattr(self, f"bank_h{o}"), getattr(self, f"bank_w{o}")
-            octave = torch.cat([x[..., None, :, :], blur_bank(x, bh, bw)], dim=-3)
+        for bank in self.banks:
+            octave = bank(x)
             octaves.append(octave)
-            x = octave[..., self.cfg.S, ::2, ::2]
+            x = strided_subsample(octave[..., self.cfg.S, :, :], 2)
         return octaves
+
+
+def dog_planes(g: torch.Tensor) -> torch.Tensor:
+    """(..., S+3, H, W) Gaussian octave -> (..., S+2, H, W) differences of
+    adjacent scales, contiguous whatever the octave's layout (one kernel)."""
+    out = g.new_empty((*g.shape[:-3], g.shape[-3] - 1, *g.shape[-2:]))
+    return torch.sub(g[..., 1:, :, :], g[..., :-1, :, :], out=out)
 
 
 def sift_gaussian_pyramid(img: torch.Tensor, cfg: PyramidConfig) -> list[torch.Tensor]:
@@ -218,4 +420,4 @@ def sift_gaussian_pyramid(img: torch.Tensor, cfg: PyramidConfig) -> list[torch.T
 
 def sift_dog_pyramid(img: torch.Tensor, cfg: PyramidConfig) -> list[torch.Tensor]:
     """DoG pyramid for detection: list of (S+2, H_o, W_o) per octave."""
-    return [g[1:] - g[:-1] for g in sift_gaussian_pyramid(img, cfg)]
+    return [dog_planes(g) for g in sift_gaussian_pyramid(img, cfg)]

@@ -20,17 +20,28 @@ Two selection branches, as in the JAX package (``use_approx_topk``):
   voxel. The JAX package's ``approx_max_k`` is exact on the CPU and exact
   selection is a valid ``approx_max_k``, so the port selects exactly.
 
-:func:`detect_pyramid_batched` is the one implementation: every tensor
-carries a leading frame axis, each kernel and each PyTorch op runs once for
-the whole batch (the block-reduce kernel takes every octave of every frame
-in one launch, sorts and top-k run along the last axis so ties break per
-frame), and :func:`detect_pyramid` is its B = 1 case. Nothing mixes values
-across frames, so a frame's keypoints do not depend on the batch it is in.
+:func:`detect_octave_groups_batched` is the one implementation, as in the
+JAX package: groups of ``(octave_id, dog)`` octaves, each group one flat
+score segment in group order. A group of one octave is NATIVE (its own
+size; on the block-reduce branch the kernel's per-octave tables, every
+native octave of every frame in one launch); a group of several shares one
+zero-padded CANVAS, scored with PyTorch ops on the padded stack with the
+padded voxels masked, its whole flat score row cut into 64-voxel blocks as
+the JAX package cuts it (blocks straddle the members, so per-octave tables
+could not select the same candidates; the JAX package computes this group
+in XLA, not in its Pallas kernel). Every tensor carries a leading frame
+axis, each kernel and each PyTorch op runs once for the whole batch, sorts
+and top-k run along the last axis so ties break per frame, and nothing
+mixes values across frames: a frame's keypoints do not depend on the batch
+it is in. :func:`detect_pyramid_batched`, :func:`detect_pyramid`,
+:func:`detect_octave_groups`, :func:`detect_octaves_batched` and
+:func:`detect_octave` build groups and call it.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from sift_parallel_optimization_tpu_torch.config import PyramidConfig
 from sift_parallel_optimization_tpu_torch.models.keypoints import Keypoints, stable_top_k
@@ -186,65 +197,172 @@ def _cube_fit(vals19: torch.Tensor, edge_ratio: float):
     return off_s, off_y, off_x, d_hat, _edge_test(hyy, hxx, hyx, edge_ratio)
 
 
-# (shapes, device) -> the static index tensors of one pyramid shape.
+# (grouping, device) -> the static metadata of one grouping of octave shapes.
 _STATIC: dict[tuple, dict] = {}
+# Columns of the per-member table (one row a group member, in group order).
+_BASE, _HW, _HS, _WS, _WP, _SP, _GSTART, _LS, _LY, _LX, _OCT = range(11)
 
 
-def _static(shapes: tuple, device) -> dict:
-    """Per-octave metadata of a pyramid shape on ``device``, built once:
-    flat score bases, interior dims, hop limits, DoG starts, fit offsets,
-    and the positions the block-reduce selection gathers from."""
-    key = (shapes, str(device))
-    if key in _STATIC:
-        return _STATIC[key]
-    lay = score_tables.table_layout(shapes)
+def _group_meta(key: tuple, device) -> dict:
+    """Per-member and per-group metadata of a grouping on ``device``, built
+    once. ``key`` holds, per group, its members' (octave id, (S+2, H, W)).
+
+    Members' flat score bases step by the group's canvas interior ((S) *
+    (hp-2) * (wp-2) voxels; a native group's canvas is its octave), their
+    unravel strides are the canvas', their hop limits their own interiors'.
+    ``tab`` packs a member's columns (one gather a call), ``deltas`` its 19
+    fit offsets in the flat DoG. The native octaves, in group order, are
+    kernel 3's octaves: ``lay`` is their table layout and ``shift`` moves
+    the kernel's flat indices (which count native octaves only) to the
+    grouping's (None where they agree)."""
+    ck = (key, str(device))
+    if ck in _STATIC:
+        return _STATIC[ck]
+    ds2 = key[0][0][1][0]
+    natives = tuple(shape for grp in key if len(grp) == 1 for _o, shape in grp)
+    lay = score_tables.table_layout(natives) if natives else []
+    rows, groups, base, gstart, j = [], [], 0, 0, 0
+    for grp in key:
+        hp = max(h for _o, (_p, h, _w) in grp)
+        wp = max(w for _o, (_p, _h, w) in grp)
+        v = (ds2 - 2) * (hp - 2) * (wp - 2)
+        for jj, (o, (_p, h, w)) in enumerate(grp):
+            rows.append((base + jj * v, (hp - 2) * (wp - 2), hp - 2, wp - 2, wp, hp * wp,
+                         gstart + jj * ds2 * hp * wp, ds2 - 3, h - 3, w - 3, o))
+        g = {"base": base, "vg": len(grp) * v, "canvas": (hp, wp), "native": None}
+        if len(grp) == 1:
+            g["native"], j = j, j + 1
+        elif any(shape[1:] != (hp, wp) for _o, shape in grp):
+            iy = torch.arange(hp - 2, device=device)[:, None]
+            ix = torch.arange(wp - 2, device=device)[None, :]
+            g["inside"] = torch.stack([(iy < h - 2) & (ix < w - 2)
+                                       for _o, (_p, h, w) in grp])[None, :, None]
+        groups.append(g)
+        base += len(grp) * v
+        gstart += len(grp) * ds2 * hp * wp
     meta = lambda v: torch.tensor(v, dtype=torch.int64, device=device)
-    st = {
-        "lay": lay,
-        "base": meta([o.g_base for o in lay]),
-        "hs": meta([o.h - 2 for o in lay]),
-        "ws": meta([o.w - 2 for o in lay]),
-        "ly": meta([o.h - 3 for o in lay]),
-        "lx": meta([o.w - 3 for o in lay]),
-        "n_total": sum((p - 2) * (h - 2) * (w - 2) for p, h, w in shapes),
-        "gstart": meta([o.dog_off for o in lay]),
-        "fit": meta(list(_FIT_OFFSETS)),                     # (19, 3)
-    }
-    dense = [(j, o) for j, o in enumerate(lay) if o.dense]
-    if dense:
-        st["dense_grp"] = meta([j for j, o in dense for _ in range(o.vg)])
-        st["dense_pos"] = torch.cat([
-            torch.arange(o.out_off, o.out_off + o.vg, device=device) for _, o in dense
-        ])
-    st["tables"] = {
-        j: torch.arange(o.out_off, o.out_off + o.n, device=device)
-        for j, o in enumerate(lay) if not o.dense
-    }
-    _STATIC[key] = st
+    tab = meta(rows)
+    fit = meta(list(_FIT_OFFSETS))
+    st = {"groups": groups, "n_total": base, "lay": lay, "natives": natives,
+          "bases": tab[:, _BASE].contiguous(), "tab": tab,
+          "deltas": (fit[:, 0] * tab[:, _SP, None] + fit[:, 1] * tab[:, _WP, None] + fit[:, 2]),
+          "shift": None, "tables": {},
+          # The sources are kernel 3's entries, then each canvas group's: in
+          # group order unless a native group follows a canvas group.
+          "moved": any(a["native"] is None and c["native"] is not None
+                       for a, c in zip(groups, groups[1:]))}
+    if lay:
+        shift = torch.zeros(lay[-1].out_off + lay[-1].n, dtype=torch.int64)
+        for g in groups:
+            if g["native"] is not None:
+                o = lay[g["native"]]
+                shift[o.out_off:o.out_off + o.n] = g["base"] - o.g_base
+        st["shift"] = shift.to(device) if bool(shift.any()) else None
+        dense = [(jn, o) for jn, o in enumerate(lay) if o.dense]
+        if dense:
+            st["dense_grp"] = meta([jn for jn, o in dense for _ in range(o.vg)])
+            st["dense_pos"] = torch.cat([
+                torch.arange(o.out_off, o.out_off + o.vg, device=device) for _, o in dense
+            ])
+    _STATIC[ck] = st
     return st
 
 
-def _select_from_tables(vals, idx, score, st: dict, k: int):
-    """The JAX package's extraction over the block tables, per frame of the
-    leading (B,) axis: each octave's part is its [firsts, seconds] tables or,
-    for an octave under 4096 voxels, its exact top-min(k, vg) by f32 score
-    (ties to the lower index); the parts concatenate in octave order,
-    zero-pad to k and meet ONE stable top-k (ties to the lower position).
+def _arange(st: dict, start: int, n: int) -> torch.Tensor:
+    """A cached (n,) arange from ``start`` on the grouping's device."""
+    key = (start, n)
+    if key not in st["tables"]:
+        st["tables"][key] = torch.arange(start, start + n, device=st["tab"].device)
+    return st["tables"][key]
+
+
+def _canvas_scores(dogs, g: dict, thr: float, edge_ratio: float, refine_iters: int,
+                   want_keys: bool):
+    """A canvas group's members zero-padded to its (hp, wp) canvas and scored
+    as one (B * n_g, S+2, hp, wp) stack, the voxels outside each member's
+    interior set to 0. Returns (B, V_g) f32 scores, (B, V_g) int32 ranking
+    keys (hop-packed for refine_iters >= 1, else the score's bits; None
+    unless ``want_keys``) and the (B, n_g * (S+2) * hp * wp) flat stack."""
+    hp, wp = g["canvas"]
+    b, ds2 = dogs[0].shape[:2]
+    stack = torch.stack([F.pad(d.to(torch.float32), (0, wp - d.shape[3], 0, hp - d.shape[2]))
+                         for d in dogs], dim=1)                     # (B, n_g, S+2, hp, wp)
+    flat = stack.reshape(-1, ds2, hp, wp)
+    key = None
+    if want_keys and refine_iters:
+        score, key = dense_score(flat, thr, edge_ratio, refine_iters, want_hops=True)
+    else:
+        score = dense_score(flat, thr, edge_ratio, refine_iters)
+        if want_keys:
+            key = score.view(torch.int32)
+    if "inside" in g:
+        shp = (b, len(dogs), *score.shape[1:])
+        score = torch.where(g["inside"], score.view(shp), 0.0)
+        if key is not None:
+            key = torch.where(g["inside"], key.view(shp), 0)
+    return (score.reshape(b, -1), None if key is None else key.reshape(b, -1),
+            stack.reshape(b, -1))
+
+
+def _canvas_entries(score, key, g: dict, k: int):
+    """A canvas group's candidate entries on the block-reduce branch, as the
+    JAX package forms them: per 64-voxel block of its whole flat row the
+    top-2 keys (``score_tables.block_top2``, first-index ties), or, under
+    ``DENSE_BELOW`` voxels, its top-min(k, V_g) voxels by f32 score (ties
+    to the lower index) with their keys. Returns (B, n) int32 keys and
+    int64 flat indices."""
+    vg, b = g["vg"], score.shape[0]
+    if vg < score_tables.DENSE_BELOW:
+        _top, sel = stable_top_k(score, min(k, vg))
+        return torch.gather(key, 1, sel), g["base"] + sel
+    span = score_tables.SPAN
+    nblk = -(-vg // span)
+    rows = F.pad(key, (0, nblk * span - vg)).view(b * nblk, span)
+    v1, a1, v2, a2 = (t.view(b, nblk) for t in score_tables.block_top2(rows))
+    rbase = span * torch.arange(nblk, device=score.device)
+    idx = torch.clamp(torch.cat([rbase + a1, rbase + a2], dim=-1), max=vg - 1)
+    return torch.cat([v1, v2], dim=-1), g["base"] + idx
+
+
+def _select_block_reduce(tables, canvas, st: dict, k: int, b: int):
+    """The JAX package's extraction over the candidate entries, per frame of
+    the (B,) axis: each group's part in group order -- a native octave's
+    [firsts, seconds] tables (kernel 3's ``tables`` = (keys, indices, dense
+    scores)) or, under 4096 voxels, its exact top-min(k, vg) by f32 score
+    (ties to the lower index); a canvas group's ``canvas`` entries -- then
+    zero-padded to k and ONE stable top-k (ties to the lower position).
     Returns (B, k) int32 keys and int64 indices."""
-    lay = st["lay"]
-    b = vals.shape[0]
-    if "dense_pos" in st:
-        # Group by octave, score descending within it: two stable sorts.
-        order = torch.sort(score, dim=-1, descending=True, stable=True).indices
-        by_group = torch.sort(st["dense_grp"][order], dim=-1, stable=True).indices
-        perm = st["dense_pos"][torch.gather(order, -1, by_group)]
-        full = torch.cat([
-            perm[:, o.score_off:o.score_off + min(k, o.vg)] if o.dense
-            else st["tables"][j].expand(b, -1)
-            for j, o in enumerate(lay)
-        ], dim=-1)
+    srcs_v, srcs_i, lay = [], [], st["lay"]
+    if tables is not None:
+        tv, ti, tscore = tables
+        srcs_v.append(tv)
+        srcs_i.append(ti if st["shift"] is None else ti + st["shift"])
+    srcs_v += [v for v, _i in canvas]
+    srcs_i += [i for _v, i in canvas]
+    vals = srcs_v[0] if len(srcs_v) == 1 else torch.cat(srcs_v, dim=-1)
+    idx = srcs_i[0] if len(srcs_i) == 1 else torch.cat(srcs_i, dim=-1)
+    groups = st["groups"]
+    if "dense_pos" in st or st["moved"]:
+        perm = None
+        if "dense_pos" in st:
+            # Group the dense octaves' voxels by octave, score descending
+            # within each: two stable sorts.
+            order = torch.sort(tscore, dim=-1, descending=True, stable=True).indices
+            by_group = torch.sort(st["dense_grp"][order], dim=-1, stable=True).indices
+            perm = st["dense_pos"][torch.gather(order, -1, by_group)]
+        pieces, at, parts = [], lay[-1].out_off + lay[-1].n if lay else 0, iter(canvas)
+        for g in groups:
+            if g["native"] is None:
+                n = next(parts)[0].shape[-1]
+                pieces.append(_arange(st, at, n))
+                at += n
+                continue
+            o = lay[g["native"]]
+            pieces.append(perm[:, o.score_off:o.score_off + min(k, o.vg)] if o.dense
+                          else _arange(st, o.out_off, o.n))
+        full = torch.cat([p.expand(b, -1) for p in pieces], dim=-1)
         vals, idx = torch.gather(vals, -1, full), torch.gather(idx, -1, full)
-    if len(lay) == 1 and vals.shape[-1] == k:
+    if len(groups) == 1 and vals.shape[-1] == k:
         return vals, idx
     if vals.shape[-1] < k:
         pad = k - vals.shape[-1]
@@ -254,120 +372,69 @@ def _select_from_tables(vals, idx, score, st: dict, k: int):
     return top, torch.gather(idx, -1, sel)
 
 
-def _tail_canvas(shapes: tuple, tail: int, device) -> dict:
-    """Per-octave metadata of the exact branch when octaves ``tail:`` share
-    one zero-padded canvas (the JAX package's ``tail_batch_side`` group):
-    the canvas members' flat score bases step by a canvas' interior, their
-    strides are the canvas' and their hop limits their own interiors. The
-    big octaves keep :func:`_static`'s values. Built once a (shapes, tail,
-    device)."""
-    key = ("tail", shapes, tail, str(device))
-    if key in _STATIC:
-        return _STATIC[key]
-    big, members = shapes[:tail], shapes[tail:]
-    ds2 = shapes[0][0]
-    hp, wp = max(h for _, h, _w in members), max(w for _, _h, w in members)
-    base = sum((p - 2) * (h - 2) * (w - 2) for p, h, w in big)
-    dog = sum(p * h * w for p, h, w in big)
-    v = (ds2 - 2) * (hp - 2) * (wp - 2)
-    rows = [(sum((p - 2) * (h - 2) * (w - 2) for p, h, w in big[:o]),
-             h - 2, w - 2, sum(p * hh * ww for p, hh, ww in big[:o]), h - 3, w - 3)
-            for o, (p, h, w) in enumerate(big)]
-    rows += [(base + j * v, hp - 2, wp - 2, dog + j * ds2 * hp * wp, h - 3, w - 3)
-             for j, (_p, h, w) in enumerate(members)]
-    cols = list(zip(*rows))
-    meta = {name: torch.tensor(c, dtype=torch.int64, device=device)
-            for name, c in zip(("base", "hs", "ws", "gstart", "ly", "lx"), cols)}
-    meta.update(canvas=(hp, wp), n_total=base + len(members) * v,
-                inside=[(h - 2, w - 2) for _p, h, w in members])
-    _STATIC[key] = meta
-    return meta
-
-
-def _tail_scores(dogs: list[torch.Tensor], meta: dict, thr: float, edge_ratio: float,
-                 refine_iters: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The canvas group: (B, n_g * (S) * (hp-2) * (wp-2)) dense scores with
-    the padded voxels zeroed, and its (B, n_g * (S+2) * hp * wp) flat DoG."""
-    hp, wp = meta["canvas"]
-    b, ds2 = dogs[0].shape[:2]
-    stack = torch.stack([torch.nn.functional.pad(d.to(torch.float32),
-                                                 (0, wp - d.shape[3], 0, hp - d.shape[2]))
-                         for d in dogs], dim=1)                    # (B, n_g, S+2, hp, wp)
-    score = dense_score(stack.reshape(-1, ds2, hp, wp), thr, edge_ratio, refine_iters)
-    score = score.reshape(b, len(dogs), *score.shape[1:])          # (B, n_g, S, hp-2, wp-2)
-    iy = torch.arange(hp - 2, device=score.device)
-    ix = torch.arange(wp - 2, device=score.device)
-    inside = torch.stack([(iy[:, None] < h) & (ix[None, :] < w) for h, w in meta["inside"]])
-    score = torch.where(inside[None, :, None], score, torch.zeros_like(score))
-    return score.reshape(b, -1), stack.reshape(b, -1)
-
-
-def detect_pyramid_batched(
-    dogs: list[torch.Tensor],
+def detect_octave_groups_batched(
+    groups: list[list[tuple[int, torch.Tensor]]],
     cfg: PyramidConfig,
-    max_keypoints: int = 512,
+    capacity: int,
     contrast_threshold: float = CONTRAST_THRESHOLD,
     edge_ratio: float = EDGE_RATIO,
     refine_iters: int = 1,
     use_approx_topk: bool | None = None,
     adaptive_hop: bool = False,
-    tail_batch_side: int | None = None,
 ) -> Keypoints:
-    """One (B, S+2, H_o, W_o) DoG tensor per octave -> Keypoints with a
-    leading (B,) axis: ``max_keypoints`` slots per frame, shared across the
-    frame's octaves, equal slot for slot to :func:`detect_pyramid` of each
-    frame.
+    """Groups of ``(octave_id, dog)`` octaves, ``dog`` (B, S+2, H, W) -> (B,
+    ``capacity``) keypoint slots, each frame's slots shared across all its
+    octaves (one top-k by ranking score). Any number of groups, of members
+    of any size, in any order; a member's coordinates and sigma are scaled
+    by 2^octave_id. A group of one octave keeps its size; the members of a
+    larger group are zero-padded to one canvas and their padded voxels
+    masked out of the candidates (module docstring).
 
-    ``use_approx_topk`` picks the selection branch (module docstring); None
-    means the block-reduce branch on a CUDA tensor and the exact one on the
-    CPU. ``adaptive_hop`` adds one more hop-and-refit round for candidates
-    whose last fit still escapes the trust region; converged candidates keep
-    their values (computed for all, then selected: no host sync).
-
-    ``tail_batch_side``: octaves whose longest side is at most this share
-    one zero-padded canvas group, scored on the canvas with its padded
-    voxels masked out (the JAX package's study knob, off by default there
-    too); exact branch only. The selection is the native one's but for ties,
-    which the canvas' flat order breaks as the JAX package's does.
+    ``use_approx_topk`` picks the selection branch: None means block-reduce
+    on a CUDA tensor (native groups through kernel 3) and exact on the CPU.
+    ``adaptive_hop`` adds one more hop-and-refit round for candidates whose
+    last fit still escapes the trust region; converged candidates keep their
+    values (computed for all, then selected: no host sync).
     """
-    device = dogs[0].device
-    b, ds2 = dogs[0].shape[:2]
-    if any(d.dim() != 4 or d.shape[0] != b for d in dogs):
-        raise ValueError("expected one (B, S+2, H_o, W_o) DoG tensor per octave")
+    if not groups or not all(groups):
+        raise ValueError("expected at least one non-empty group of (octave_id, dog)")
+    b, ds2 = groups[0][0][1].shape[:2]
+    if any(d.dim() != 4 or tuple(d.shape[:2]) != (b, ds2) for grp in groups for _o, d in grp):
+        raise ValueError("expected (B, S+2, H_o, W_o) DoG tensors with one B and one S")
+    device = groups[0][0][1].device
     if use_approx_topk is None:
         use_approx_topk = device.type == "cuda"
     use_hops = use_approx_topk and refine_iters >= 1
-    shapes = tuple(tuple(d.shape[1:]) for d in dogs)
-    tail = next((o for o, (_p, h, w) in enumerate(shapes)
-                 if tail_batch_side is not None and max(h, w) <= tail_batch_side), len(shapes))
-    if any(max(h, w) > tail_batch_side for _p, h, w in shapes[tail:]):
-        raise ValueError("tail_batch_side: the octaves that share the canvas must be the last")
-    if tail < len(shapes) and use_approx_topk:
-        raise ValueError("tail_batch_side groups octaves on the exact branch only "
-                         "(use_approx_topk=False)")
-    st = _static(shapes, device)
-    meta = _tail_canvas(shapes, tail, device) if tail < len(shapes) else st
-    k = min(max_keypoints, meta["n_total"])
-    # (B, L): each frame's octaves back to back, frame-major.
-    flat_dog = torch.cat([d.to(torch.float32).reshape(b, -1) for d in dogs[:tail]]
-                         or [dogs[0].new_zeros((b, 0), dtype=torch.float32)], dim=1)
+    st = _group_meta(tuple(tuple((int(o), tuple(d.shape[1:])) for o, d in grp)
+                           for grp in groups), device)
+    k = min(capacity, st["n_total"])
     thr = contrast_threshold / cfg.S
+    native = [grp[0][1].to(torch.float32).reshape(b, -1) for grp in groups if len(grp) == 1]
+    flat_native = (native[0] if len(native) == 1 else torch.cat(native, dim=1)) if native else None
+    pieces, scores, canvas = [], [], []
+    for grp, g in zip(groups, st["groups"]):
+        if g["native"] is not None:
+            pieces.append(native[g["native"]])
+            if not use_approx_topk:
+                scores.append(dense_score(grp[0][1], thr, edge_ratio, refine_iters).reshape(b, -1))
+            continue
+        score, key, stack = _canvas_scores([d for _o, d in grp], g, thr, edge_ratio,
+                                           refine_iters, use_approx_topk)
+        pieces.append(stack)
+        if use_approx_topk:
+            canvas.append(_canvas_entries(score, key, g, k))
+        else:
+            scores.append(score)
+    # (B, L): each frame's groups back to back, frame-major.
+    flat_dog = flat_native if len(pieces) == len(native) else torch.cat(pieces, dim=1)
     if use_approx_topk:
-        tv, ti, tscore = score_tables.score_block_top2(
-            flat_dog, shapes, thr, edge_ratio, refine_iters
-        )
-        vals, idx = _select_from_tables(tv, ti, tscore, st, k)
+        tables = None if flat_native is None else score_tables.score_block_top2(
+            flat_native, st["natives"], thr, edge_ratio, refine_iters)
+        vals, idx = _select_block_reduce(tables, canvas, st, k, b)
     else:
-        scores = [dense_score(d, thr, edge_ratio, refine_iters).reshape(b, -1)
-                  for d in dogs[:tail]]
-        if tail < len(shapes):
-            tail_score, tail_dog = _tail_scores(dogs[tail:], meta, thr, edge_ratio,
-                                                refine_iters)
-            scores.append(tail_score)
-            flat_dog = torch.cat([flat_dog, tail_dog], dim=1)
-        vals, idx = stable_top_k(torch.cat(scores, dim=1), k)
-    if k < max_keypoints:  # tiny pyramid: pad up to capacity
-        pad = max_keypoints - k
+        vals, idx = stable_top_k(scores[0] if len(scores) == 1 else torch.cat(scores, dim=1), k)
+    if k < capacity:  # tiny pyramid: pad up to capacity
+        pad = capacity - k
         vals = torch.cat([vals, vals.new_zeros((b, pad))], dim=-1)
         idx = torch.cat([idx, idx.new_zeros((b, pad))], dim=-1)
     if use_approx_topk:
@@ -378,24 +445,20 @@ def detect_pyramid_batched(
             vals = vals & ~31
         vals = vals.view(torch.float32)
 
-    bases = meta["base"]
-    j = (idx[..., None] >= bases).sum(-1) - 1            # octave of each slot
-    hs_c, ws_c = meta["hs"][j], meta["ws"][j]
-    gstart_c = meta["gstart"][j]
-    lim_y, lim_x = meta["ly"][j], meta["lx"][j]         # = H-3, W-3 of the octave
-    lim_s = torch.full_like(hs_c, ds2 - 3)
-    rem = idx - bases[j]
-    s_i = rem // (hs_c * ws_c)
-    y_i = (rem // ws_c) % hs_c
-    x_i = rem % ws_c
-
-    wp_c = ws_c + 2
-    sp_c = (hs_c + 2) * wp_c
-    fit = st["fit"]
-    deltas = fit[:, 0] * sp_c[..., None] + fit[:, 1] * wp_c[..., None] + fit[:, 2]
+    # Each slot's member (bases ascend in group order) and its metadata in
+    # one gather of the packed table.
+    j = (idx[..., None] >= st["bases"]).sum(-1) - 1
+    col = st["tab"][j].unbind(-1)
+    wp_c, sp_c, lim_s, lim_y, lim_x = col[_WP], col[_SP], col[_LS], col[_LY], col[_LX]
+    rem = idx - col[_BASE]
+    s_i = rem // col[_HW]
+    y_i = (rem // col[_WS]) % col[_HS]
+    x_i = rem % col[_WS]
+    deltas = st["deltas"][j]                                # (B, K, 19)
+    corner0 = col[_GSTART]
 
     def fit_at(ps, py, px):
-        corner = gstart_c + ps * sp_c + py * wp_c + px
+        corner = corner0 + ps * sp_c + py * wp_c + px
         pos = (corner[..., None] + deltas).reshape(b, -1)
         return _cube_fit(torch.gather(flat_dog, 1, pos).view(b, -1, len(_FIT_OFFSETS)),
                          edge_ratio)
@@ -444,7 +507,7 @@ def detect_pyramid_batched(
     x_o = x_i.to(torch.float32) + 1.0 + ox
     y_o = y_i.to(torch.float32) + 1.0 + oy
     s_o = s_i.to(torch.float32) + 1.0 + os_     # DoG plane index (1..S)
-    oct_ids = j.to(torch.int32)
+    oct_ids = col[_OCT].to(torch.int32)
     scale_mult = torch.exp2(oct_ids.to(torch.float32))
     sigma = cfg.sigma0 * torch.exp2(s_o / cfg.S) * scale_mult
     zero = torch.zeros_like(vals)
@@ -460,13 +523,60 @@ def detect_pyramid_batched(
     )
 
 
-def detect_pyramid(dogs: list[torch.Tensor], cfg: PyramidConfig, max_keypoints: int = 512,
-                   **thresholds) -> Keypoints:
-    """(S+2, H_o, W_o) DoG octaves of one frame -> ``max_keypoints`` slots
-    shared across all octaves: the B = 1 case of
-    :func:`detect_pyramid_batched`, which documents ``thresholds``."""
-    kp = detect_pyramid_batched([d[None] for d in dogs], cfg, max_keypoints, **thresholds)
+def detect_octave_groups(groups: list[list[tuple[int, torch.Tensor]]], cfg: PyramidConfig,
+                         capacity: int, **thresholds) -> Keypoints:
+    """Groups of ``(octave_id, dog)`` with ``dog`` (S+2, H, W) -> ``capacity``
+    slots shared across all octaves: the B = 1 case of
+    :func:`detect_octave_groups_batched`, which documents ``thresholds``."""
+    kp = detect_octave_groups_batched([[(o, d[None]) for o, d in grp] for grp in groups], cfg,
+                                      capacity, **thresholds)
     return Keypoints(*[f[0] for f in kp])
+
+
+def detect_octaves_batched(dogs: list[torch.Tensor], octaves: list[int], cfg: PyramidConfig,
+                           capacity: int, **thresholds) -> Keypoints:
+    """(S+2, H_i, W_i) DoG stacks of the given octave ids -> ``capacity``
+    shared slots: :func:`detect_octave_groups` with every octave in ONE
+    padded group."""
+    return detect_octave_groups([list(zip(octaves, dogs))], cfg, capacity, **thresholds)
+
+
+def _pyramid_groups(dogs, tail_batch_side: int | None) -> list:
+    """The JAX package's grouping of a pyramid: every octave at its native
+    size, one group each; with ``tail_batch_side``, the octaves whose long
+    side is at most that share one zero-padded canvas group, last."""
+    small = lambda d: tail_batch_side is not None and max(d.shape[-2:]) <= tail_batch_side
+    tail = [(o, d) for o, d in enumerate(dogs) if small(d)]
+    return [[(o, d)] for o, d in enumerate(dogs) if not small(d)] + ([tail] if tail else [])
+
+
+def detect_pyramid_batched(
+    dogs: list[torch.Tensor],
+    cfg: PyramidConfig,
+    max_keypoints: int = 512,
+    tail_batch_side: int | None = None,
+    **thresholds,
+) -> Keypoints:
+    """One (B, S+2, H_o, W_o) DoG tensor per octave -> Keypoints with a
+    leading (B,) axis, ``max_keypoints`` slots per frame shared across the
+    frame's octaves, equal slot for slot to :func:`detect_pyramid` of each
+    frame: :func:`detect_octave_groups_batched` with one native group an
+    octave. ``tail_batch_side``: octaves whose long side is at most this
+    share one zero-padded canvas group instead (the JAX package's study
+    knob, off by default there too); the selection is the native one's but
+    for ties, which the canvas' flat order breaks as the JAX package's does.
+    """
+    return detect_octave_groups_batched(_pyramid_groups(dogs, tail_batch_side), cfg,
+                                        max_keypoints, **thresholds)
+
+
+def detect_pyramid(dogs: list[torch.Tensor], cfg: PyramidConfig, max_keypoints: int = 512,
+                   tail_batch_side: int | None = None, **thresholds) -> Keypoints:
+    """(S+2, H_o, W_o) DoG octaves of one frame -> ``max_keypoints`` slots
+    shared across all octaves: :func:`detect_octave_groups` with the
+    grouping of :func:`detect_pyramid_batched`."""
+    return detect_octave_groups(_pyramid_groups(dogs, tail_batch_side), cfg, max_keypoints,
+                                **thresholds)
 
 
 def detect_octave(dog: torch.Tensor, octave: int, cfg: PyramidConfig, capacity: int,
@@ -474,11 +584,8 @@ def detect_octave(dog: torch.Tensor, octave: int, cfg: PyramidConfig, capacity: 
                   refine_iters: int = 1) -> Keypoints:
     """(S+2, H, W) DoG stack of ONE octave -> Keypoints with ``capacity``
     slots, coordinates and sigma in original image units (scaled by
-    2^octave), ``octave`` in every slot. The exact selection branch of
-    :func:`detect_pyramid` on this octave alone, rescaled: a power-of-two
-    product is exact, so the result is that octave's detection bit for bit."""
-    kp = detect_pyramid([dog], cfg, capacity, contrast_threshold=contrast_threshold,
-                        edge_ratio=edge_ratio, refine_iters=refine_iters, use_approx_topk=False)
-    mult = float(2 ** octave)
-    return kp._replace(x=kp.x * mult, y=kp.y * mult, sigma=kp.sigma * mult,
-                       octave=torch.full_like(kp.octave, octave))
+    2^octave), ``octave`` in every slot: :func:`detect_octaves_batched` of
+    this octave alone, as in the JAX package."""
+    return detect_octaves_batched([dog], [octave], cfg, capacity,
+                                  contrast_threshold=contrast_threshold,
+                                  edge_ratio=edge_ratio, refine_iters=refine_iters)

@@ -18,7 +18,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from sift_parallel_optimization_tpu_torch.config import PyramidConfig, ScaleSpaceMode
-from sift_parallel_optimization_tpu_torch.core.pyramid_ref import SiftPyramid
+from sift_parallel_optimization_tpu_torch.core.pyramid_ref import SiftPyramid, dog_planes
 from sift_parallel_optimization_tpu_torch.models.descriptor import (
     max_patch_radius,
     orient_and_describe,
@@ -113,7 +113,7 @@ class SiftFrontend(nn.Module):
     @torch.no_grad()
     def detect(self, gauss: list[torch.Tensor]) -> Keypoints:
         with record_function("sift.detect"):
-            dogs = [g[..., 1:, :, :] - g[..., :-1, :, :] for g in gauss]
+            dogs = [dog_planes(g) for g in gauss]
             detect = detect_pyramid_batched if dogs[0].dim() == 4 else detect_pyramid
             return detect(dogs, self.cfg, max_keypoints=self.max_keypoints,
                           **self.thresholds)

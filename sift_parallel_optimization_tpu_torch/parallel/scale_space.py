@@ -41,15 +41,17 @@ from torch.distributed.tensor import Replicate, Shard
 
 from sift_parallel_optimization_tpu_torch.config import PyramidConfig
 from sift_parallel_optimization_tpu_torch.core.pyramid_ref import (
+    BlurBank,
     _blur_stack,
     _octave_scale_sigmas,
     _taps_np,
-    blur_bank,
     check_fp32_matmul,
     clamp_octaves,
     reference_dog_octave,
     reference_filter_bank,
     reference_subsample,
+    separable_taps,
+    strided_subsample,
 )
 from sift_parallel_optimization_tpu_torch.parallel.halo import start_neighbor_rows
 from sift_parallel_optimization_tpu_torch.parallel.mesh import (
@@ -194,25 +196,13 @@ def octave_sharded_reference_dog_pyramid(img: torch.Tensor, S: int, mesh,
 
 def sharded_separable_blur(mesh, axis: str = "spatial"):
     """fn(local (h, W) rows, taps (2r+1,)) -> the rank's rows of the edge-
-    clamped separable blur. The halo (r rows each way) is exchanged with the
-    neighbours; columns are edge-padded locally. The taps are applied as a
-    sum of shifted rows in fp32 (no convolution library call: cuDNN would
-    run it in TF32 on the card)."""
+    clamped separable blur: ``core.pyramid_ref.separable_taps`` on the rows
+    extended by the halo (r rows each way, the border ranks' own edge row
+    repeated), so bitwise equal to the unsharded ``separable_blur``."""
 
     def run(local: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
-        k = taps.shape[0]
-        r = k // 2
-        exchange = start_neighbor_rows(local, r, mesh, axis)
-        taps = taps.to(local.dtype)
-
-        def cols(x):
-            xw = torch.cat([x[:, :1].expand(-1, r), x, x[:, -1:].expand(-1, r)], dim=1)
-            return sum(taps[t] * xw[:, t:t + x.shape[1]] for t in range(k))
-
-        from_up, from_down = exchange.wait()
-        x = cols(torch.cat([from_up, local, from_down], dim=0))
-        h = local.shape[0]
-        return sum(taps[t] * x[t:t + h] for t in range(k))
+        from_up, from_down = start_neighbor_rows(local, taps.shape[0] // 2, mesh, axis).wait()
+        return separable_taps(torch.cat([from_up, local, from_down], dim=0), taps)
 
     return run
 
@@ -290,26 +280,26 @@ class ShardedSiftPyramid:
             # must stay local.
             return size % (2 * n) == 0 and size // n >= max(2 * max_r, 8)
 
-        def bank(h, w, sigmas, sharded):
+        def bank(h, w, sigmas, sharded, with_input):
             if sharded:
                 return _ShardedBank(h // n, w, sigmas, dt, device)
-            return _blur_stack(h, sigmas, dt, device), _blur_stack(w, sigmas, dt, device)
+            return BlurBank(h, w, sigmas, with_input, dt, device)
 
         self.n = n
         self.height = height
         self.sharded0 = can_shard(height)
-        self.base = bank(height, width, [base_sigma], self.sharded0)
+        self.base = bank(height, width, [base_sigma], self.sharded0, False)
         self.octaves = []                  # (sharded, bank) per octave
         h, w, sharded = height, width, self.sharded0
         for _ in range(cfg.n_octaves):
-            self.octaves.append((sharded, bank(h, w, rel, sharded)))
+            self.octaves.append((sharded, bank(h, w, rel, sharded, True)))
             h, w = -(-h // 2), -(-w // 2)
             sharded = sharded and can_shard(h)
 
     def _blur(self, x, bank, sharded):
-        if sharded:
-            return bank(x, self.mesh, self.axis)
-        return blur_bank(x, *bank)
+        """The blurs of ``x`` (sharded), or, unsharded, what the bank gives:
+        the base blur, or the whole octave with ``x`` as its scale 0."""
+        return bank(x, self.mesh, self.axis) if sharded else bank(x)
 
     def __call__(self, img: torch.Tensor) -> list:
         if img.dim() != 2 or img.shape[0] != self.height:
@@ -324,9 +314,11 @@ class ShardedSiftPyramid:
         rep = replicated(mesh)
         out = []
         for o, (sharded, bank) in enumerate(self.octaves):
-            octave = torch.cat([x[None], self._blur(x, bank, sharded)], dim=0)
+            octave = self._blur(x, bank, sharded)
+            if sharded:
+                octave = torch.cat([x[None], octave], dim=0)
             out.append(global_view(octave, mesh, [Replicate(), Shard(1)] if sharded else rep))
-            x = octave[self.cfg.S, ::2, ::2]
+            x = strided_subsample(octave[self.cfg.S], 2)
             nxt = self.octaves[o + 1][0] if o + 1 < len(self.octaves) else sharded
             if sharded and not nxt:
                 # The resharding point: the tail octaves run unsharded.

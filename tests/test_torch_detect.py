@@ -40,7 +40,7 @@ def assert_same_keypoints(got, want):
     x, y, sigma and score within COORD_ATOL."""
     valid = np.asarray(want.valid)
     np.testing.assert_array_equal(got.valid.numpy(), valid)
-    assert int(got.count()) == int(valid.sum())
+    assert int(got.count().sum()) == int(valid.sum())
     for f in ("octave", "scale"):
         np.testing.assert_array_equal(
             getattr(got, f).numpy()[valid], np.asarray(getattr(want, f))[valid], err_msg=f
@@ -169,6 +169,94 @@ def test_tail_batch_side_matches_jax(dogs256, tail_batch_side):
                                           256, tail_batch_side=tail_batch_side)
     for f in tkp.Keypoints._fields:
         assert torch.equal(getattr(batched, f)[1], getattr(got, f)), f
-    with pytest.raises(ValueError, match="exact branch"):
-        tdet.detect_pyramid(dogs, tcfg, 256, tail_batch_side=tail_batch_side,
-                            use_approx_topk=True)
+    # The block-reduce branch takes the canvas group too: its whole flat
+    # score row cut into 64-voxel blocks, as the JAX package cuts it.
+    want = jax.jit(lambda d: jdet.detect_pyramid(d, jcfg, 256, tail_batch_side=tail_batch_side,
+                                                 use_approx_topk=True))(
+        [jnp.asarray(d) for d in dogs256])
+    got = tdet.detect_pyramid(dogs, tcfg, 256, tail_batch_side=tail_batch_side,
+                              use_approx_topk=True)
+    assert int(got.count()) > 20
+    assert_same_keypoints(got, want)
+
+
+# Groupings of the 256^2 pyramid's six octaves (sides 256 .. 8) for the
+# grouped entry points: one native group an octave; the octaves of side <= 32
+# or <= 64 in one canvas group; and groups out of octave order, with native
+# and canvas groups mixed, a canvas group first and a canvas under 4096 score
+# voxels (the 16^2 and 8^2 octaves), which keeps every voxel.
+GROUPINGS = ("native", "tail32", "tail64", "mixed", "shuffled")
+GROUP_CAPACITY = 48          # under the candidates of a frame: the top-k cut matters
+
+
+def _grouping(name, n_octaves, sides):
+    if name == "native":
+        return [[o] for o in range(n_octaves)]
+    if name.startswith("tail"):
+        side = int(name[4:])
+        return ([[o] for o in range(n_octaves) if sides[o] > side]
+                + [[o for o in range(n_octaves) if sides[o] <= side]])
+    return {"mixed": [[2], [0], [1, 3]], "shuffled": [[5, 4], [1], [3, 2], [0]]}[name]
+
+
+@pytest.fixture(scope="module")
+def dogs256_pair(dogs256):
+    """(B=2) DoG stacks per octave: frames 0 and 1 of the synthetic stream."""
+    other = _jax_dogs(256, 3, tnative.synth_frame(256, 1, seed=0))
+    return [np.stack([a, b]) for a, b in zip(dogs256, other)]
+
+
+@pytest.mark.parametrize("use_approx_topk", [False, True], ids=["exact", "block_reduce"])
+@pytest.mark.parametrize("grouping", GROUPINGS)
+def test_detect_octave_groups_batched_matches_jax(dogs256_pair, grouping, use_approx_topk):
+    """B = 2 frames, slot for slot against the JAX package on both branches;
+    each frame alone (B = 1) against its frame of the JAX batch (a batch
+    mixes no values across frames; exp2 on the CPU may round an element an
+    ulp apart where the vector loop splits it differently, hence not bitwise)."""
+    groups = _grouping(grouping, len(dogs256_pair), [d.shape[-1] for d in dogs256_pair])
+    jcfg, tcfg = jfe.sift_config(256), tfe.sift_config(256)
+    kw = dict(use_approx_topk=use_approx_topk)
+    want = jax.jit(lambda s: jdet.detect_octave_groups_batched(
+        [[(o, s[o]) for o in g] for g in groups], jcfg, GROUP_CAPACITY, **kw))(
+        [jnp.asarray(d) for d in dogs256_pair])
+    t = [torch.from_numpy(d) for d in dogs256_pair]
+    got = tdet.detect_octave_groups_batched([[(o, t[o]) for o in g] for g in groups], tcfg,
+                                            GROUP_CAPACITY, **kw)
+    assert got.x.shape == (2, GROUP_CAPACITY) and int(got.count().sum()) > 40
+    assert_same_keypoints(got, want)
+    for i in range(2):
+        one = tdet.detect_octave_groups([[(o, t[o][i]) for o in g] for g in groups], tcfg,
+                                        GROUP_CAPACITY, **kw)
+        assert_same_keypoints(one, jax.tree.map(lambda x, i=i: x[i], want))
+
+
+@pytest.mark.parametrize("use_approx_topk", [False, True], ids=["exact", "block_reduce"])
+@pytest.mark.parametrize("grouping", ["mixed", "shuffled"])
+def test_detect_octave_groups_matches_jax(dogs256, grouping, use_approx_topk):
+    """One frame (B = 1) through both packages' detect_octave_groups."""
+    groups = _grouping(grouping, len(dogs256), [d.shape[-1] for d in dogs256])
+    jcfg, tcfg = jfe.sift_config(256), tfe.sift_config(256)
+    want = jax.jit(lambda s: jdet.detect_octave_groups(
+        [[(o, s[o]) for o in g] for g in groups], jcfg, GROUP_CAPACITY,
+        use_approx_topk=use_approx_topk))([jnp.asarray(d) for d in dogs256])
+    got = tdet.detect_octave_groups(
+        [[(o, torch.from_numpy(dogs256[o].copy())) for o in g] for g in groups], tcfg,
+        GROUP_CAPACITY, use_approx_topk=use_approx_topk)
+    assert int(got.count()) > 20
+    assert_same_keypoints(got, want)
+
+
+@pytest.mark.parametrize("use_approx_topk", [False, True], ids=["exact", "block_reduce"])
+def test_detect_octaves_batched_matches_jax(dogs256, use_approx_topk):
+    """Octaves 3, 1, 2 in one padded group (the 128^2 canvas), in that id
+    order, through both packages' detect_octaves_batched."""
+    ids = [3, 1, 2]
+    jcfg, tcfg = jfe.sift_config(256), tfe.sift_config(256)
+    want = jax.jit(lambda ds: jdet.detect_octaves_batched(
+        ds, ids, jcfg, GROUP_CAPACITY, use_approx_topk=use_approx_topk))(
+        [jnp.asarray(dogs256[o]) for o in ids])
+    got = tdet.detect_octaves_batched([torch.from_numpy(dogs256[o].copy()) for o in ids], ids,
+                                      tcfg, GROUP_CAPACITY, use_approx_topk=use_approx_topk)
+    assert int(got.count()) > 10
+    assert set(got.octave[got.valid].tolist()) <= set(ids)
+    assert_same_keypoints(got, want)

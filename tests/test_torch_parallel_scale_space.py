@@ -22,7 +22,8 @@ Tolerances:
   windows cross).
 * SIFT pyramid, separable blur and blur bank: 1e-5 absolute on [0, 1]
   images (halo band products and dense Toeplitz products sum in another
-  order).
+  order); the sharded separable blur bitwise equal to the port's unsharded
+  ``separable_blur`` (the same arithmetic on halo-extended rows).
 """
 
 import ast
@@ -167,6 +168,7 @@ def _unsharded():
     img = t(W.unit_image(64, 4, width=48))
     bank = [tpr._blur_stack(n, [1.0, 2.5], torch.float32, "cpu") for n in (64, 48)]
     out["blur_bank"] = tpr.blur_bank(img, *bank).numpy()
+    out["sep_blur"] = tpr.separable_blur(img, tpr.gaussian_kernel_1d(1.6)).numpy()
     return out
 
 
@@ -220,6 +222,9 @@ def test_separable_blur_and_blur_bank_match_jax(port, jax_out, unsharded, n, sha
                                    atol=SIFT_ATOL, err_msg=key)
     np.testing.assert_allclose(_case(port, n, shape, "blur_bank"), unsharded["blur_bank"],
                                rtol=0, atol=SIFT_ATOL)
+    # The sharded blur runs the unsharded one's arithmetic on halo-extended
+    # rows: bitwise equal.
+    np.testing.assert_array_equal(_case(port, n, shape, "sep_blur"), unsharded["sep_blur"])
 
 
 @pytest.mark.parametrize("n, shape", SHAPES, ids=IDS)

@@ -130,12 +130,14 @@ def test_blur_matrix_matches_jax():
         )
 
 
-@pytest.mark.parametrize("size", [64, 256])
+@pytest.mark.parametrize("size", [64, 256, 512])
 def test_sift_pyramid_matches_jax(size):
+    """512^2: the JAX package's banded blurs (its cutoff) against the port's
+    form for that size."""
     img = tnative.synth_frame(size, 0, seed=1)
     jcfg = JaxConfig(length=size, S=3, mode=JaxMode.SIFT)
     tcfg = PyramidConfig(length=size, S=3, mode=ScaleSpaceMode.SIFT)
-    want = jpr.sift_gaussian_pyramid(jnp.asarray(img), jcfg)
+    want = jax.jit(lambda x: jpr.sift_gaussian_pyramid(x, jcfg))(jnp.asarray(img))
     got = tpr.sift_gaussian_pyramid(torch.from_numpy(img.copy()), tcfg)
     assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
     for o, (g, w) in enumerate(zip(got, want)):
@@ -147,11 +149,93 @@ def test_sift_pyramid_matches_jax(size):
 
 
 def test_sift_pyramid_rectangular_matches_jax():
-    img = np.random.default_rng(3).random((48, 80), dtype=np.float32)
-    jcfg = JaxConfig(length=48, S=2, mode=JaxMode.SIFT)
-    tcfg = PyramidConfig(length=48, S=2, mode=ScaleSpaceMode.SIFT)
-    want = jpr.sift_gaussian_pyramid(jnp.asarray(img), jcfg)
-    got = tpr.SiftPyramid(tcfg, 48, 80)(torch.from_numpy(img))
-    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=SIFT_ATOL)
+    _rectangular_matches_jax(48, 80, 2)
+
+
+def test_sift_pyramid_kitti_shape_matches_jax():
+    """376 x 1241 (KITTI's frames): banded in both packages on both axes,
+    neither side a multiple of 64."""
+    _rectangular_matches_jax(376, 1241, 3)
+
+
+def _rectangular_matches_jax(h, w, S):
+    img = np.random.default_rng(3).random((h, w), dtype=np.float32)
+    jcfg = JaxConfig(length=h, S=S, mode=JaxMode.SIFT)
+    tcfg = PyramidConfig(length=h, S=S, mode=ScaleSpaceMode.SIFT)
+    want = jax.jit(lambda x: jpr.sift_gaussian_pyramid(x, jcfg))(jnp.asarray(img))
+    got = tpr.SiftPyramid(tcfg, h, w)(torch.from_numpy(img))
+    assert [tuple(g.shape) for g in got] == [tuple(o.shape) for o in want]
+    for g, o in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(o), rtol=0, atol=SIFT_ATOL)
+
+
+# The blocked-band blur: the JAX package's own bound
+# (tests/test_pyramid_ref.py:158-215): the band blocks hold exactly the
+# dense matrices' nonzeros, so the two agree up to f32 summation order.
+BANDED_ATOL = 2e-6
+
+
+@pytest.mark.parametrize("h,w", [(512, 512), (384, 1280), (376, 1241)])
+def test_blur_bank_banded_matches_dense_and_jax(h, w):
+    cfg = PyramidConfig(length=w, S=3, mode=ScaleSpaceMode.SIFT)
+    sigmas = tpr._octave_scale_sigmas(cfg)
+    img = np.random.default_rng(h + w).random((h, w), dtype=np.float32)
+    x = torch.from_numpy(img)
+    got = tpr.blur_bank_banded(x, sigmas)
+    dense = tpr.blur_bank(x, tpr._blur_stack(h, sigmas, torch.float32, "cpu"),
+                          tpr._blur_stack(w, sigmas, torch.float32, "cpu"))
+    assert got.shape == dense.shape == (len(sigmas), h, w)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=0, atol=BANDED_ATOL)
+    want = jax.jit(lambda a: jpr.blur_bank_banded(a, sigmas))(jnp.asarray(img))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=BANDED_ATOL)
+    # The band blocks are the JAX package's, entry for entry.
+    r = max(tpr._taps_np(s)[0] for s in sigmas)
+    np.testing.assert_array_equal(tpr._band_blocks_np(w, sigmas, 64, r),
+                                  jpr._band_blocks_np(w, sigmas, 64, r))
+
+
+@pytest.mark.parametrize("h,w", [(512, 512), (376, 1241), (200, 100)])
+def test_sift_pyramid_blurs_take_the_dispatched_form(monkeypatch, h, w):
+    """Every blur of the pyramid takes the form its shape names, on one frame
+    and on a batch of two; the all-dense pyramid (cutoff out of reach)
+    agrees within the banded bound, and scale 0 of a banded octave is its
+    base exactly."""
+    cfg = PyramidConfig(length=h, S=3, mode=ScaleSpaceMode.SIFT)
+    frames = torch.from_numpy(np.random.default_rng(5).random((2, h, w), dtype=np.float32))
+    pyr = tpr.SiftPyramid(cfg, h, w)
+    sides = [(h, w)] + pyr.shapes
+    assert pyr.forms == ["banded" if tpr.banded_form(*hw) else "dense" for hw in sides]
+    assert pyr.forms[0] == ("banded" if max(h, w) >= tpr._BANDED_MIN_SIZE else "dense")
+    got, batch = pyr(frames[1]), pyr(frames)
+    monkeypatch.setattr(tpr, "_BANDED_MIN_SIZE", 1 << 30)
+    dense = tpr.SiftPyramid(cfg, h, w)
+    assert set(dense.forms) == {"dense"}
+    want = dense(frames[1])
+    for o, (g, b, d) in enumerate(zip(got, batch, want)):
+        assert g.shape == b.shape[1:] == d.shape
+        np.testing.assert_allclose(g.numpy(), d.numpy(), rtol=0, atol=BANDED_ATOL, err_msg=f"{o}")
+        np.testing.assert_allclose(b[1].numpy(), g.numpy(), rtol=0, atol=BANDED_ATOL)
+        if o + 1 < len(got):
+            assert torch.equal(got[o + 1][0], g[cfg.S, ::2, ::2])
+    dogs = tpr.sift_dog_pyramid(frames[1], cfg)
+    assert all(d.is_contiguous() for d in dogs)
+
+
+@pytest.mark.parametrize("sigma", [1.6, 3.7])
+@pytest.mark.parametrize("shape", [(64, 48), (2, 37, 29)])
+def test_separable_blur_matches_jax(shape, sigma):
+    img = np.random.default_rng(7).random(shape, dtype=np.float32)
+    taps = tpr.gaussian_kernel_1d(sigma)
+    want = jax.jit(jpr.separable_blur)(jnp.asarray(img), jnp.asarray(taps.numpy()))
+    got = tpr.separable_blur(torch.from_numpy(img), taps)
+    assert got.shape == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=SIFT_ATOL)
+
+
+@pytest.mark.parametrize("step", [1, 2, 4])
+def test_strided_subsample_matches_jax(step):
+    img = np.random.default_rng(8).normal(size=(37, 29)).astype(np.float32)
+    want = np.asarray(jax.jit(jpr.strided_subsample, static_argnums=1)(jnp.asarray(img), step))
+    got = tpr.strided_subsample(torch.from_numpy(img), step).numpy()
+    assert got.shape == want.shape == (-(-37 // step), -(-29 // step))
+    np.testing.assert_array_equal(got, want)
