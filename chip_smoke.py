@@ -6,11 +6,14 @@
 Builds the port's CUDA kernels from ``sift_parallel_optimization_tpu_torch/
 csrc``, checks each against its plain PyTorch version on the card (kernels
 1 and 3 bit for bit, kernel 1 up to 4096^2, kernel 3 also on odd, wide,
-constant, two-level and NaN DoGs), drives
-the entry points (the REFERENCE DoG pyramid at 512^2, S=2; the SIFT
+constant, two-level and NaN DoGs; kernel 5, the 3-pass bf16 blur product,
+at every launch of the 512^2 and 1024^2 pyramids at blur_precision="high"),
+drives the entry points (the REFERENCE DoG pyramid at 512^2, S=2; the SIFT
 frontend at 512^2/K=512 and 1024^2/K=2048, S=3, on its default block-reduce
 detection branch; the frontend with fused descriptor sampling at
-512^2/K=512; the batched frontend on 8 frames at both sizes; the
+512^2/K=512; the batched frontend on 8 frames at both sizes; the frontend
+at blur_precision="high" at both sizes and batched at 512^2, against
+"highest"; the
 blocked-band blur against the dense one at 512^2, 1024^2 and 376x1241 and
 the form the 512^2 pyramid takes; the grouped detection entry point on
 256^2 and 512^2 frames under three groupings and both selection branches
@@ -53,12 +56,17 @@ SRC_K1 = "sift_parallel_optimization_tpu_torch/csrc/reference_dog.cu"
 SRC_K2 = "sift_parallel_optimization_tpu_torch/csrc/patch_gather.cu"
 SRC_K3 = "sift_parallel_optimization_tpu_torch/csrc/score_tables.cu"
 SRC_K4 = "sift_parallel_optimization_tpu_torch/csrc/gather_resample.cu"
+SRC_K5 = "sift_parallel_optimization_tpu_torch/csrc/bf16x3_mm.cu"
 # file:line of the TPU kernels each CUDA kernel replaces.
 REPLACES_K1 = "sift_parallel_optimization_tpu/ops/scale_space_pallas.py:86"
 REPLACES_K2 = "sift_parallel_optimization_tpu/ops/patch_gather.py:66"
 REPLACES_K2B = "sift_parallel_optimization_tpu/ops/patch_gather.py:96"
 REPLACES_K3 = "sift_parallel_optimization_tpu/ops/detect_fused.py:209"
 REPLACES_K4 = "sift_parallel_optimization_tpu/ops/descriptor_fused.py:138"
+# Kernel 5 replaces no Pallas kernel: the JAX package's blur products at
+# Precision.HIGH are XLA dots; this one is the banded row pass, the largest
+# product of the 512^2 and 1024^2 pyramids.
+REPLACES_K5 = "sift_parallel_optimization_tpu/core/pyramid_ref.py:389"
 
 # Kernel 1 vs its plain version: bitwise (the kernel's _rn arithmetic is the
 # plain version's, op for op), at the headline size, the largest size of the
@@ -145,6 +153,9 @@ PATH_KERNELS = {
     "mesh": ("patch_gather_batched", "score_tables"),
     "mesh dryrun": ("reference_dog_pyramid",),
     "groups": ("score_tables",),
+    "high 512": ("bf16x3_mm", "patch_gather", "score_tables"),
+    "high 1024": ("bf16x3_mm", "patch_gather", "score_tables"),
+    "high batched 512": ("bf16x3_mm", "patch_gather_batched", "score_tables"),
 }
 # Every kernel entry point as (module of sift_parallel_optimization_tpu_torch.
 # ops, wrapper, name in the launch counts) with the arguments that make up
@@ -166,6 +177,9 @@ SHAPED_WRAPPERS = (
     ("gather_resample", "gather_resample_cuda", "gather_resample",
      lambda atlas, grow, x0, params: (tuple(atlas.shape), tuple(grow.shape),
                                       tuple(params.shape))),
+    ("blur_product", "bf16x3_bmm_cuda", "bf16x3_mm",
+     lambda a, b, out=None: (tuple(a.shape), a.stride(), tuple(b.shape), b.stride(),
+                             None if out is None else (tuple(out.shape), out.stride()))),
 )
 LAUNCHED: dict = {}
 HELD: dict = {}
@@ -317,6 +331,20 @@ BANDED_SIZES, BANDED_ATOL = ((512, 512), (1024, 1024), (376, 1241)), 2e-6
 # Kernel 3 takes the native groups on the block-reduce branch: its launches
 # are the path "groups", each launch's shape held to the plain version.
 GROUP_SIZES, GROUP_FRAMES, GROUP_CAPACITY, GROUP_ATOL = (256, 512), 2, 48, 1e-4
+# The high phase: blur_precision="high" (kernel 5, the 3-pass bf16 product)
+# against "highest" on the card. Kernel 5 is held to its plain version on
+# every launch of the SIFT pyramid at 512^2 and 1024^2 on 1 and on BATCH
+# frames (the banded passes of the base blur and octave 0 (and 512^2 at
+# 1024^2), the dense products of 256^2 and 128^2, the tail's two products),
+# which are the shapes the paths "high 512", "high 1024" (SiftFrontend on
+# FRAMES frames) and "high batched 512" (BATCH frames a call) launch. Both
+# sides compute the same 3k products, exact in f32, and sum them in fp32 in
+# another order: elementwise within (3k + 2) * 2^-22 of |A| |B| (k the
+# product's depth). Keypoints under "high" are matched to those under
+# "highest" within HIGH_MATCH_PX (same octave and scale); at least
+# HIGH_MATCH_FRAC of them (the JAX package read 100% on the TPU).
+HIGH_MATCH_PX, HIGH_MATCH_FRAC = 0.5, 0.95
+HIGH_SIZES = (512, 1024)
 BENCH_RUNS = (("pyramid", None), ("frontend,matching,tracking", 256))
 BENCH_RECORDS = 12
 THR = 0.04 / 3          # detect.CONTRAST_THRESHOLD / S
@@ -1885,6 +1913,156 @@ def banded_phase(torch, dev):
           f"{pyr.forms} (octave 0 bitwise equal to a {named} bank)")
 
 
+def kernel5_tol(torch, a, b):
+    """Kernel 5 against its plain version, elementwise: (3k + 2) * 2^-22 of
+    |A| |B| (both sum the same 3k exact products in fp32, in other orders)."""
+    from sift_parallel_optimization_tpu_torch.utils.device import fp32_matmul
+
+    with fp32_matmul():
+        return (3 * a.shape[-1] + 2) * 2.0**-22 * (a.abs() @ b.abs())
+
+
+def matched_share(torch, got, ref, px):
+    """Share of ``ref``'s valid keypoints with one of ``got``'s at the same
+    octave and scale within ``px`` (Chebyshev)."""
+    g, r = got.keypoints, ref.keypoints
+    gv, rv = g.valid, r.valid
+    dist = torch.maximum((r.x[rv][:, None] - g.x[gv][None]).abs(),
+                         (r.y[rv][:, None] - g.y[gv][None]).abs())
+    same = (r.octave[rv][:, None] == g.octave[gv][None]) & (r.scale[rv][:, None] == g.scale[gv][None])
+    best = torch.where(same, dist, torch.full_like(dist, float("inf"))).amin(dim=1)
+    return float((best <= px).float().mean()) if best.numel() else 1.0
+
+
+def high_phase(torch, dev, frames, feats, counters, peaks):
+    """blur_precision="high" on the card: kernel 5 held to its plain version
+    at every launch of the 512^2 and 1024^2 pyramids on 1 and BATCH frames;
+    the paths "high 512", "high 1024" and "high batched 512" counted; the
+    pyramid's device ms and ops, keypoints a frame, the share matched and the
+    largest Gaussian-plane difference, "highest" against "high"; kernel 5's
+    device ms at each launch of the 512^2 pyramid beside its plain version,
+    the fp32 product "highest" runs at the same operands and its bound.
+    Returns (the paths' launches, kernel 5's numbers for the kernels line)."""
+    from sift_parallel_optimization_tpu_torch.bench import roofline as R
+    from sift_parallel_optimization_tpu_torch.core import pyramid_ref as pr
+    from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+    from sift_parallel_optimization_tpu_torch.ops import blur_product as bp
+    from sift_parallel_optimization_tpu_torch.parallel.frontend import batched_extract_features
+    from sift_parallel_optimization_tpu_torch.utils.profiling import device_kernel_ms
+
+    t0 = time.perf_counter()
+    kernel = bp.bf16x3_bmm_cuda
+    seen, err = [], [0.0]
+
+    def checking(a, b, out=None):
+        got = kernel(a, b, out=out)
+        want = bp.bf16x3_bmm_plain(a, b)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        check(got.shape == want.shape and bool((diff <= kernel5_tol(torch, a, b)).all()),
+              f"high: kernel 5 disagrees with plain at {tuple(a.shape)} @ {tuple(b.shape)}: "
+              f"{float(diff.max()):.3e}")
+        err[0] = max(err[0], float(diff.max()))
+        held("bf16x3_mm", a, b, out)
+        seen.append((a, b, out))
+        return got
+
+    imgs = {size: torch.stack(frames[size]) for size in HIGH_SIZES}
+    pyrs = {(size, prec): pr.SiftPyramid(sift_config(size, blur_precision=prec), size,
+                                         device=dev)
+            for size in HIGH_SIZES for prec in ("highest", "high")}
+    launch_args, n_launch = {}, {}
+    bp.bf16x3_bmm_cuda = checking
+    try:
+        for size in HIGH_SIZES:
+            for b in (1, BATCH):
+                seen.clear()
+                pyrs[size, "high"](imgs[size][0] if b == 1 else imgs[size])
+                launch_args[size, b], n_launch[size, b] = list(seen), len(seen)
+    finally:
+        bp.bf16x3_bmm_cuda = kernel
+    held_s = time.perf_counter() - t0
+
+    # The counted paths.
+    launches, out = {}, {}
+    for size, _S, k in FRONTEND_CONFIGS:
+        fe = SiftFrontend(sift_config(size, blur_precision="high"), max_keypoints=k, device=dev)
+        out[size], launches[f"high {size}"] = counted(
+            torch, counters, lambda: [fe(f) for f in frames[size][:FRAMES]])
+        check_features(torch, out[size], size, k)
+    size, k = FRONTEND_CONFIGS[0][0], FRONTEND_CONFIGS[0][2]
+    batched, launches["high batched 512"] = counted(
+        torch, counters, lambda: batched_extract_features(
+            imgs[size], sift_config(size, blur_precision="high"), k))
+    got = {n: c for n, c in launches["high batched 512"].items() if c}
+    check(got == {"bf16x3_mm": n_launch[size, BATCH], "patch_gather_batched": 1,
+                  "score_tables": 1},
+          f"high batched 512 launched {got}: kernel 5 {n_launch[size, BATCH]} times (twice a "
+          f"blur call) and kernels 2b and 3 once a batch expected")
+    check_features(torch, [frame_of(batched, i) for i in range(BATCH)], size, k)
+
+    lines = []
+    for size, _S, k in FRONTEND_CONFIGS:
+        hi, ref = out[size], feats[size][1]
+        share = min(matched_share(torch, h, r, HIGH_MATCH_PX) for h, r in zip(hi, ref))
+        check(share >= HIGH_MATCH_FRAC, f"high {size}: only {share:.4f} of the highest "
+              f"keypoints within {HIGH_MATCH_PX} px")
+        kp = {p: np.mean([int(f.keypoints.count()) for f in fs])
+              for p, fs in (("highest", ref), ("high", hi))}
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            pyrs[size, "high"](imgs[size][0]), pyrs[size, "highest"](imgs[size][0])))
+        prof = {}
+        for prec in ("highest", "high"):
+            for b in (1, BATCH):
+                x = imgs[size][0] if b == 1 else imgs[size]
+                nk, dms = device_profile(torch, pyrs[size, prec], x, iters=5)
+                prof[prec, b] = (dms, nk)
+                if b == 1:
+                    check(round(nk) <= FRAME_OPS_MAX, f"high: the {size}^2 {prec} pyramid takes "
+                          f"{nk:.0f} ops")
+        fe_ops = device_profile(torch, SiftFrontend(
+            sift_config(size, blur_precision="high"), max_keypoints=k, device=dev),
+            frames[size][0], iters=3)[0]
+        check(round(fe_ops) <= FRAME_OPS_MAX, f"high {size}: {fe_ops:.0f} frontend ops a frame")
+        lines.append(
+            f"{size}^2: pyramid device ms / ops, highest -> high: 1 frame {prof['highest', 1][0]:.4f}"
+            f" / {prof['highest', 1][1]:.0f} -> {prof['high', 1][0]:.4f} / {prof['high', 1][1]:.0f}"
+            f", {BATCH} frames {prof['highest', BATCH][0]:.4f} / {prof['highest', BATCH][1]:.0f}"
+            f" -> {prof['high', BATCH][0]:.4f} / {prof['high', BATCH][1]:.0f}; frontend K={k} "
+            f"high {fe_ops:.0f} ops a frame; keypoints a frame {kp['highest']:.1f} -> "
+            f"{kp['high']:.1f}, matched within {HIGH_MATCH_PX} px {share:.4f}; largest "
+            f"Gaussian-plane difference {diff:.3e}; kernel 5 launches a pyramid call "
+            f"{n_launch[size, 1]} (1 frame), {n_launch[size, BATCH]} ({BATCH} frames)")
+
+    # Kernel 5 alone at each launch of the one-frame 512^2 pyramid: device ms
+    # of the kernel, its plain version and the fp32 product that "highest"
+    # runs at the same operands (torch.bmm / torch.matmul), and its bound.
+    times = []
+    for a, b, o in launch_args[HIGH_SIZES[0], 1]:
+        batch = int(np.prod(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])))
+        model = R.bf16x3_product_model(batch, a.shape[-2], b.shape[-1], a.shape[-1],
+                                       R.strided_elems(a), R.strided_elems(b))
+        times.append((tuple(a.shape), tuple(b.shape),
+                      device_kernel_ms(bp.bf16x3_bmm_cuda, a, b, o, iters=10),
+                      device_kernel_ms(bp.bf16x3_bmm_plain, a, b, o, iters=10),
+                      device_kernel_ms(pr.blur_product, a, b, "highest", o, iters=10),
+                      model.kernel_bound(peaks)))
+    total = [sum(t[i] for t in times) for i in (2, 3, 4)]
+    # The kernels line's entry: the 512^2 octave 0 row pass (the largest
+    # launch of the path), the third launch of the pyramid call.
+    rep = times[2]
+    phase("high", f"kernel 5 held to plain at {sum(n_launch.values())} launches "
+          f"({len(HELD['bf16x3_mm'])} shapes) in {held_s:.1f} s, max_abs_err {err[0]:.3e} (atol "
+          f"(3k + 2) * 2^-22 |A||B|); " + "; ".join(lines) + "; kernel 5 device ms at the 512^2 "
+          f"pyramid's launches (kernel / plain / fp32 product of highest / bound): " + "; ".join(
+              f"{sa}@{sb}: {m:.4f} / {p:.4f} / {f:.4f} / {bd[0]:.4f} ({bd[1]})"
+              for sa, sb, m, p, f, bd in times)
+          + f"; all {len(times)}: kernel {total[0]:.4f}, plain {total[1]:.4f}, fp32 "
+          f"{total[2]:.4f} ms")
+    return launches, {"err": err[0], "ms": rep[2], "plain_ms": rep[3], "fp32_ms": rep[4],
+                      "bound": rep[5], "shape": (rep[0], rep[1])}
+
+
 def native_frame(size, i=0):
     from sift_parallel_optimization_tpu_torch.utils import native
 
@@ -2179,6 +2357,7 @@ def main() -> int:
             sift_config,
         )
         from sift_parallel_optimization_tpu_torch.ops import _build
+        from sift_parallel_optimization_tpu_torch.ops import blur_product as bp
         from sift_parallel_optimization_tpu_torch.ops import gather_resample as gr
         from sift_parallel_optimization_tpu_torch.ops import patch_gather as pg
         from sift_parallel_optimization_tpu_torch.ops import scale_space as ss
@@ -2378,7 +2557,8 @@ def main() -> int:
     # Counters from the main path's runs alone, one path at a time.
     counters = {"reference_dog_pyramid": (ss, "LAUNCHES"), "patch_gather": (pg, "LAUNCHES"),
                 "patch_gather_batched": (pg, "LAUNCHES_BATCHED"),
-                "score_tables": (st, "LAUNCHES"), "gather_resample": (gr, "LAUNCHES")}
+                "score_tables": (st, "LAUNCHES"), "gather_resample": (gr, "LAUNCHES"),
+                "bf16x3_mm": (bp, "LAUNCHES")}
     pyr, feats, path_launches = drive_main_path(torch, dev, frames, counters)
 
     # 5. Headline: the kernel path vs the plain version on CPU tensors.
@@ -2472,6 +2652,12 @@ def main() -> int:
               f"ops/frame ({bnk:.0f} per batch); per-frame {ms:.3f} ms/frame, max {mx:.3f} "
               f"(n={n}), device {dms:.3f} ms in {nk:.0f} ops/frame")
         del batch
+
+    # 7b''. blur_precision="high": kernel 5 held to its plain version at
+    # every shape its paths launch, the paths counted, "high" against
+    # "highest".
+    high_launches, k5 = high_phase(torch, dev, frames, feats, counters, peaks)
+    path_launches.update(high_launches)
 
     # 7b'. The blocked-band blur against the dense one and the dispatch;
     # the grouped detection entry points on the card against the CPU.
@@ -2569,9 +2755,11 @@ def main() -> int:
         "score_tables rows (5,1024,1024)": rows_bound(stacks["random 1024x1024"][0][0]),
         "gather_resample K=512": resample_bound(512),
         "gather_resample K=2048": resample_bound(2048),
+        f"bf16x3_mm {k5['shape'][0]}@{k5['shape'][1]}": k5["bound"],
     }
-    phase("bounds", f"least ms at {peaks.hbm_gbps / 1e3:.2f} TB/s and "
-          f"{peaks.elementwise_tflops:.0f} fp32 TFLOP/s ({peaks.name}): " + "; ".join(
+    phase("bounds", f"least ms at {peaks.hbm_gbps / 1e3:.2f} TB/s, "
+          f"{peaks.elementwise_tflops:.0f} fp32 TFLOP/s and {peaks.matmul_bf16_tflops:.0f} "
+          f"bf16 TFLOP/s ({peaks.name}): " + "; ".join(
               f"{name}: {ms:.4f} ({by})" for name, (ms, by) in bounds.items())
           + f"; floor of any launch (a one-element zero_()): {launch_floor_ms:.4f} ms")
     k2_bound, k2b_bound = bounds["patch_gather 512^2 K=512"], bounds[
@@ -2598,6 +2786,8 @@ def main() -> int:
         entry("patch_gather_batched", SRC_K2, REPLACES_K2B, k2b_err, mb, pb, k2b_bound, libb),
         entry("score_tables", SRC_K3, REPLACES_K3, k3_err, m3, p3, k3_bound, None),
         entry("gather_resample", SRC_K4, REPLACES_K4, k4_err, m4, p4, k4_bound, None),
+        entry("bf16x3_mm", SRC_K5, REPLACES_K5, k5["err"], k5["ms"], k5["plain_ms"],
+              k5["bound"], None),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

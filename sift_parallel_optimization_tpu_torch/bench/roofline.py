@@ -27,18 +27,21 @@ raises, and a CPU run has no peaks (floors and shares are None there, never
 computed against another device's peaks). The one entry: the H100 SXM5
 80 GB ("NVIDIA H100 80GB HBM3", 700 W power limit), from NVIDIA's H100
 Tensor Core GPU datasheet, dense rates: HBM3 3.35 TB/s; FP32 67 TFLOP/s
-outside the tensor cores; NVLink 4 900 GB/s a GPU, 450 GB/s each way. Both
-matmul classes are charged at the fp32 rate: the port pins fp32 matmuls
+outside the tensor cores; 989 TFLOP/s dense bf16 on the tensor cores;
+NVLink 4 900 GB/s a GPU, 450 GB/s each way. Both fp32 matmul classes are
+charged at the fp32 rate: the port pins fp32 matmuls
 (``core/pyramid_ref.check_fp32_matmul``), so the products the JAX package
-runs at DEFAULT precision run in fp32 on the card too. A gathered element
+runs at DEFAULT precision run in fp32 on the card too. The SIFT blurs at
+``blur_precision="high"`` are three bf16 products each (kernel 5), charged
+at the bf16 rate (``matmul_bf16_flops``). A gathered element
 costs one 32-byte DRAM sector at the HBM rate: a floor, in place of the
 TPU's measured 5.5 ns an element.
 
 The kernels' own bounds (``chip_smoke.py``'s ``kernels`` line) are
 :class:`CostModel` builders here too (:func:`reference_dog_kernel_model`,
 :func:`patch_gather_model`, :func:`score_tables_model`,
-:func:`score_rows_model`, :func:`gather_resample_model`), read off the
-shapes a call is given.
+:func:`score_rows_model`, :func:`gather_resample_model`,
+:func:`bf16x3_product_model`), read off the shapes a call is given.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ class Peaks:
     name: str                     # torch.cuda.get_device_name of the part
     hbm_gbps: float               # HBM bandwidth, GB/s (both directions together)
     matmul_f32_tflops: float      # fp32 matmul peak (no TF32): both matmul classes
+    matmul_bf16_tflops: float     # dense bf16 tensor-core peak (fp32 accumulate)
     elementwise_tflops: float     # fp32 outside the tensor cores
     gather_bytes_per_elem: float  # DRAM bytes one gathered element moves
     link_gbps: float              # GPU-to-GPU link, GB/s each way
@@ -66,6 +70,7 @@ H100_SXM = Peaks(
     name="NVIDIA H100 80GB HBM3",
     hbm_gbps=3350.0,
     matmul_f32_tflops=67.0,
+    matmul_bf16_tflops=989.0,
     elementwise_tflops=67.0,
     gather_bytes_per_elem=32.0,
     link_gbps=450.0,
@@ -96,6 +101,7 @@ class CostModel:
     hbm_bytes: float = 0.0
     matmul_f32_flops: float = 0.0      # matmuls the JAX package runs at HIGHEST
     matmul_default_flops: float = 0.0  # matmuls the JAX package runs at DEFAULT
+    matmul_bf16_flops: float = 0.0     # bf16 tensor-core flops (3 a "high" product flop)
     elementwise_flops: float = 0.0     # elementwise / stencil flops
     gather_elems: float = 0.0
     note: str = ""
@@ -105,7 +111,8 @@ class CostModel:
         return {
             "hbm": self.hbm_bytes / bw,
             "matmul": (self.matmul_f32_flops + self.matmul_default_flops)
-            / (peaks.matmul_f32_tflops * 1e12),
+            / (peaks.matmul_f32_tflops * 1e12)
+            + self.matmul_bf16_flops / (peaks.matmul_bf16_tflops * 1e12),
             "elementwise": self.elementwise_flops / (peaks.elementwise_tflops * 1e12),
             "gather": self.gather_elems * peaks.gather_bytes_per_elem / bw,
         }
@@ -138,6 +145,7 @@ class CostModel:
             hbm_bytes=self.hbm_bytes + other.hbm_bytes,
             matmul_f32_flops=self.matmul_f32_flops + other.matmul_f32_flops,
             matmul_default_flops=self.matmul_default_flops + other.matmul_default_flops,
+            matmul_bf16_flops=self.matmul_bf16_flops + other.matmul_bf16_flops,
             elementwise_flops=self.elementwise_flops + other.elementwise_flops,
             gather_elems=self.gather_elems + other.gather_elems,
             note=self.note,
@@ -193,7 +201,8 @@ def sift_pyramid_model(cfg: PyramidConfig) -> CostModel:
     form (a (64 + 2r)-long product per pixel a pass, r the largest radius,
     scale 0 carried as an identity plane), below it the dense Toeplitz form
     (an N-long product), so its %SOL reads low: the distance to the taps
-    alone, not a slip of the floor.
+    alone, not a slip of the floor. At ``blur_precision="high"`` every flop
+    is three bf16 tensor-core flops (kernel 5's passes), at the bf16 rate.
     """
     rel = _octave_scale_sigmas(cfg)
     bytes_ = 0.0
@@ -204,8 +213,11 @@ def sift_pyramid_model(cfg: PyramidConfig) -> CostModel:
             per_px += 2 * 2 * _taps(_base_sigma(cfg))
         flops += per_px * n * n
         bytes_ += 4.0 * n * n * (1 + (cfg.S + 3))
-    return CostModel(hbm_bytes=bytes_, matmul_f32_flops=flops,
-                     note=f"sift pyramid {cfg.length}^2 S={cfg.S}")
+    note = f"sift pyramid {cfg.length}^2 S={cfg.S}"
+    if cfg.blur_precision == "high":
+        return CostModel(hbm_bytes=bytes_, matmul_bf16_flops=3.0 * flops,
+                         note=f"{note} high")
+    return CostModel(hbm_bytes=bytes_, matmul_f32_flops=flops, note=note)
 
 
 def dense_score_model(cfg: PyramidConfig) -> CostModel:
@@ -431,6 +443,31 @@ def score_rows_model(planes: int, h: int, w: int) -> CostModel:
     entries = (planes - 2) * (h - 2) * -(-(w - 2) // 64)
     return CostModel(hbm_bytes=4.0 * planes * h * w + 8.0 * entries,
                      elementwise_flops=130.0 * vox, note=f"score tables rows {planes}x{h}x{w}")
+
+
+def strided_elems(x: torch.Tensor) -> int:
+    """Distinct elements a strided view ``x`` reads: a broadcast dimension
+    (stride 0) once, overlapping windows (a batch stride below the row
+    stride) once where they overlap."""
+    offsets = torch.zeros((), dtype=torch.int64, device=x.device)
+    for size, stride in zip(x.shape, x.stride()):
+        offsets = (offsets[..., None]
+                   + stride * torch.arange(size if stride else 1, device=x.device)).flatten()
+    return int(torch.unique(offsets).numel())
+
+
+def bf16x3_product_model(batch: int, m: int, n: int, k: int, a_elems: int | None = None,
+                         b_elems: int | None = None) -> CostModel:
+    """Kernel 5 (``csrc/bf16x3_mm.cu``): ``batch`` products (m, k) @ (k, n)
+    of f32 operands, each read once (``a_elems`` / ``b_elems`` distinct
+    elements where a view broadcasts or overlaps, :func:`strided_elems`;
+    else batch * m * k and batch * k * n), C written once; 3 * 2mnk bf16
+    tensor-core flops a product (hi.hi, hi.lo, lo.hi)."""
+    a = batch * m * k if a_elems is None else a_elems
+    b = batch * k * n if b_elems is None else b_elems
+    return CostModel(hbm_bytes=4.0 * (a + b + batch * m * n),
+                     matmul_bf16_flops=3.0 * 2.0 * batch * m * n * k,
+                     note=f"bf16x3 product {batch} x ({m}x{k})({k}x{n})")
 
 
 def resample_footprint_bytes(params: torch.Tensor, atlas_numel: int) -> float:

@@ -34,10 +34,11 @@ kernels, from the records ``profile_device`` counts). Floors and shares come
 from ``bench/roofline.py`` with the attached part's peaks; on the CPU they
 are None (``sol_pct``, ``bound``, ``floor_ms``).
 
-Two sweeps of the JAX ``bench_matrix`` have no record here: the Pallas
-``tile_rows`` sweep (JAX runs it only on a TPU; kernel 1 has no such knob)
-and ``blur_precision="high"`` (the port refuses it by design: every blur is
-full fp32, ``config.PyramidConfig``). The frame-batch sweep's ``per_frame``
+One sweep of the JAX ``bench_matrix`` has no record here: the Pallas
+``tile_rows`` sweep (JAX runs it only on a TPU; kernel 1 has no such knob).
+The ``blur_precision`` sweep times the SIFT pyramid at "highest" (full
+fp32 products) and "high" (the 3-pass bf16 products of kernel 5,
+``ops/blur_product.py``). The frame-batch sweep's ``per_frame``
 path, a loop of ``SiftFrontend`` calls, is the port's form of JAX's ``vmap``
 path (each record says so in ``jax_path``). The mesh-shape sweep runs over
 every (data, spatial) factorization of the default process group's world
@@ -506,7 +507,8 @@ def bench_tracking(writer: MetricsWriter, size: int = 256, window: int = 6,
 
 def bench_matrix(writer: MetricsWriter, size: int = 512, device="cuda", **kw) -> None:
     """The knob sweep (the reference's schedule / chunk-size study): the
-    compute dtype of the SIFT pyramid (float32, bfloat16) and the frame
+    compute dtype of the SIFT pyramid (float32, bfloat16), the arithmetic
+    of its blur products (``blur_precision`` "highest", "high") and the frame
     batch of the frontend (B in 1, 2, 4, 8 at min(size, 256)^2, K=256) on
     two paths: ``batched`` (one SiftFrontend call on (B, H, W), the body of
     ``parallel/frontend.batched_extract_features`` with its matrices held:
@@ -530,6 +532,18 @@ def bench_matrix(writer: MetricsWriter, size: int = 512, device="cuda", **kw) ->
         ms, chain = rec.slope(step, img)
         rec.write(f"matrix_sift_pyramid_ms_{size}", round(ms, 4), "ms", dtype=dtype_name,
                   **chain)
+
+    # The blur products' arithmetic: full fp32 against the 3-pass bf16
+    # product (kernel 5 on the card).
+    for prec_name in ("highest", "high"):
+        pyr = SiftPyramid(sift_config(size, blur_precision=prec_name), size, device=rec.dev)
+
+        def step(x, pyr=pyr):
+            return sum(o.sum() for o in pyr(x))
+
+        ms, chain = rec.slope(step, img)
+        rec.write(f"matrix_sift_pyramid_ms_{size}", round(ms, 4), "ms",
+                  blur_precision=prec_name, **chain)
 
     bsize = min(size, 256)
     fe = SiftFrontend(sift_config(bsize), max_keypoints=256, device=rec.dev)

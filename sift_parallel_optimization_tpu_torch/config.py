@@ -1,9 +1,10 @@
 """Configuration of the scale-space / SIFT pipeline (port of ``config.py``).
 
 Same fields and semantics as the JAX ``PyramidConfig``; ``dtype`` is a
-``torch.dtype`` and ``blur_precision`` accepts only ``"highest"``: every blur
-of the port is a full-fp32 matrix product, and the field exists so that
-configurations round-trip between the two packages.
+``torch.dtype``. ``blur_precision`` picks the arithmetic of the SIFT blur
+products: ``"highest"`` full fp32 (the geometry-grade default), ``"high"``
+the 3-pass bf16 product on the tensor cores (``ops/blur_product.py``:
+detection-grade, not for geometry).
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ def octave_sizes(length: int, n_octaves: Optional[int] = None) -> list[int]:
     return [length >> o for o in range(n)]
 
 
+# The blur products' arithmetic: full fp32, or the 3-pass bf16 product.
+BLUR_PRECISIONS = ("highest", "high")
+
 _DTYPES = {
     "float32": torch.float32,
     "float16": torch.float16,
@@ -63,7 +67,13 @@ class PyramidConfig:
     max_octaves: optional cap on the octave count.
     min_octave_size: smallest octave side computed in SIFT mode.
     dtype: compute dtype of the pyramid.
-    blur_precision: must be "highest" (full fp32 blurs).
+    blur_precision: arithmetic of the SIFT blur products. "highest"
+      (default): full fp32, what geometry needs (the SfM and odometry gates
+      were read on it). "high": each f32 operand split into two bf16 parts,
+      three bf16 products on the card's tensor cores with fp32 accumulation
+      (kernel 5, ``ops/blur_product.py``): ~1e-5 blur error, detection-grade,
+      not for geometry. "default" (one bf16 pass) is refused: its ~1e-3 blur
+      error injects spurious DoG extrema.
     """
 
     length: int = 512
@@ -77,10 +87,11 @@ class PyramidConfig:
     blur_precision: str = "highest"
 
     def __post_init__(self):
-        if self.blur_precision != "highest":
+        if self.blur_precision not in BLUR_PRECISIONS:
             raise ValueError(
-                f"blur_precision must be 'highest' (got {self.blur_precision!r}):"
-                " the port computes every blur in full fp32"
+                f"blur_precision must be one of {sorted(BLUR_PRECISIONS)} "
+                f"(got {self.blur_precision!r}); 1-pass bf16 'default' is "
+                "rejected: it injects spurious DoG extrema"
             )
 
     @property

@@ -6,13 +6,17 @@
   CUDA tensor :func:`reference_dog_pyramid` is one launch of the fused kernel
   in ``ops/scale_space.py``; the functions here are its plain version.
 * SIFT mode: a true Gaussian scale space. Blurs are edge-clamped Toeplitz
-  products ``B_h^T X B_w`` in full fp32 (no cuDNN convolution, which
-  defaults to TF32 on Hopper): dense ``torch.matmul`` products, or, for an
-  octave whose long side is at least :data:`_BANDED_MIN_SIZE`, the
-  blocked-band form (:func:`blur_bank_banded`: batched products over the
-  band's 64-column blocks only). The octave cascade is the plain blur ->
-  subsample loop, and the matrices live on the device as buffers of
-  :class:`SiftPyramid`.
+  products ``B_h^T X B_w`` (no cuDNN convolution, which defaults to TF32 on
+  Hopper): dense products, or, for an octave whose long side is at least
+  :data:`_BANDED_MIN_SIZE`, the blocked-band form (:func:`blur_bank_banded`:
+  batched products over the band's 64-column blocks only). The octave
+  cascade is the blur -> subsample loop down to the octaves of side at most
+  :data:`_SIFT_TAIL_MAX`, which come from their first base in one pair of
+  batched products with precomposed operators (:class:`TailBank`). Every
+  blur product goes through :func:`blur_product`, in the arithmetic that
+  ``PyramidConfig.blur_precision`` names: full fp32 ("highest") or the 3-pass
+  bf16 product ("high", kernel 5 on the card). The matrices live on the
+  device as buffers of :class:`SiftPyramid`.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from sift_parallel_optimization_tpu_torch.config import (
     PyramidConfig,
     num_octaves,
 )
+from sift_parallel_optimization_tpu_torch.ops.blur_product import bf16x3_bmm
 
 # ---------------------------------------------------------------------------
 # REFERENCE mode
@@ -185,12 +190,29 @@ def _blur_stack(size: int, sigmas, dtype, device) -> torch.Tensor:
     return torch.stack([blur_matrix(size, s, dtype, device) for s in sigmas])
 
 
-def blur_bank(x: torch.Tensor, bank_h: torch.Tensor, bank_w: torch.Tensor) -> torch.Tensor:
+def blur_product(a: torch.Tensor, b: torch.Tensor, precision: str = "highest",
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """``a @ b``, broadcast over batch dimensions, for every blur of the SIFT
+    pyramid: "highest" is ``torch.bmm`` (into ``out``) on two 3-D operands
+    and ``torch.matmul`` otherwise, in full fp32; "high" the 3-pass bf16
+    product (``ops/blur_product.bf16x3_bmm``: kernel 5 on a CUDA tensor, its
+    plain version on the CPU), every operand read in place."""
+    if precision == "high":
+        return bf16x3_bmm(a, b, out=out)
+    if precision != "highest":
+        raise ValueError(f"unknown blur precision {precision!r}")
+    if a.dim() == b.dim() == 3:
+        return torch.bmm(a, b, out=out)
+    return torch.matmul(a, b, out=out)
+
+
+def blur_bank(x: torch.Tensor, bank_h: torch.Tensor, bank_w: torch.Tensor,
+              precision: str = "highest") -> torch.Tensor:
     """(H, W) image -> (S', H, W): out_s = B^H_s^T @ x @ B^W_s. (B, H, W)
     frames -> (B, S', H, W): the same products broadcast over the frames."""
     if x.dim() == 3:
         x = x[:, None]
-    return bank_h.transpose(-1, -2) @ (x @ bank_w)
+    return blur_product(bank_h.transpose(-1, -2), blur_product(x, bank_w, precision), precision)
 
 
 def check_fp32_matmul(x: torch.Tensor) -> None:
@@ -268,7 +290,7 @@ def _band_operands(h: int, w: int, sigmas, bw: int = BAND_WIDTH, with_input: boo
 
 
 def _blur_banded(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, r: int,
-                 bw: int) -> torch.Tensor:
+                 bw: int, precision: str = "highest") -> torch.Tensor:
     """(..., H, W) -> (..., n, H, W) through :func:`_band_operands`' blocks:
     one pad and two batched products, each over windows of the previous
     result viewed in place (no copy of a window).
@@ -299,15 +321,16 @@ def _blur_banded(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, r: int
     n_win = b * nbh - 1
     win = xr.as_strided((n_win, k, wx), (bw * wx, wx, 1))
     blocks = rows[:n_win] if b == 1 else rows.repeat(b, 1, 1)[:n_win]
-    t = torch.bmm(blocks, win)                              # (n_win, bw * n, wx)
+    t = blur_product(blocks, win, precision)                # (n_win, bw * n, wx)
     m, q = n_win * bw, n * nbw - 1
     out = x.new_empty((b * hx, n, wx))
-    torch.bmm(t.as_strided((q, m, k), (bw, n * wx, 1)), cols[:q],
-              out=out.as_strided((q, m, bw), (bw, n * wx, 1)))
+    blur_product(t.as_strided((q, m, k), (bw, n * wx, 1)), cols[:q], precision,
+                 out=out.as_strided((q, m, bw), (bw, n * wx, 1)))
     return out.view(b, hx, n, wx).permute(0, 2, 1, 3)[:, :, :h, :w].reshape(*lead, n, h, w)
 
 
-def blur_bank_banded(base: torch.Tensor, sigmas, bw: int = BAND_WIDTH) -> torch.Tensor:
+def blur_bank_banded(base: torch.Tensor, sigmas, bw: int = BAND_WIDTH,
+                     precision: str = "highest") -> torch.Tensor:
     """Blocked-band form of the blur bank: (..., H, W) -> (..., len(sigmas),
     H, W), out_s = B^H_s^T @ x @ B^W_s with only the band's blocks
     multiplied (the 2 * ceil(3 sigma) + 1 nonzero diagonals of each matrix,
@@ -319,7 +342,7 @@ def blur_bank_banded(base: torch.Tensor, sigmas, bw: int = BAND_WIDTH) -> torch.
     rows, cols, r, bw = _band_operands(h, w, sigmas, bw)
     as_x = dict(dtype=base.dtype, device=base.device)
     return _blur_banded(base, torch.from_numpy(rows).to(**as_x),
-                        torch.from_numpy(cols).to(**as_x), r, bw)
+                        torch.from_numpy(cols).to(**as_x), r, bw, precision)
 
 
 def banded_form(h: int, w: int) -> bool:
@@ -332,13 +355,15 @@ class BlurBank(nn.Module):
     """One blur call of the SIFT pyramid on (..., h, w) inputs, its matrices
     held as buffers: the dense Toeplitz pair or, where :func:`banded_form`,
     the band blocks. ``with_input`` puts the input itself first (an octave:
-    scale 0, then the blurs). The forward returns (..., n, h, w)."""
+    scale 0, then the blurs). The forward returns (..., n, h, w), every
+    product in ``precision``."""
 
     def __init__(self, h: int, w: int, sigmas, with_input: bool, dtype=torch.float32,
-                 device=None):
+                 device=None, precision: str = "highest"):
         super().__init__()
         self.banded = banded_form(h, w)
         self.with_input = with_input
+        self.precision = precision
         if self.banded:
             rows, cols, self.r, self.bw = _band_operands(h, w, sigmas, with_input=with_input)
             self.register_buffer("rows", torch.from_numpy(rows).to(device=device, dtype=dtype))
@@ -353,9 +378,75 @@ class BlurBank(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.banded:
-            return _blur_banded(x, self.rows, self.cols, self.r, self.bw)
-        out = blur_bank(x, self.bank_h, self.bank_w)
+            return _blur_banded(x, self.rows, self.cols, self.r, self.bw, self.precision)
+        out = blur_bank(x, self.bank_h, self.bank_w, self.precision)
         return torch.cat([x[..., None, :, :], out], dim=-3) if self.with_input else out
+
+
+# ---------------------------------------------------------------------------
+# The composite-operator tail (the JAX package's _sift_tail_octaves)
+# ---------------------------------------------------------------------------
+
+# Octaves whose long side is at most this come, where more than one octave
+# is left, from their first base in one pair of batched products with
+# precomposed operators (:class:`TailBank`), as in the JAX package.
+_SIFT_TAIL_MAX = 64
+
+
+def _sift_tail_mats_np(n: int, rel: tuple, sig_s: float, n_tail: int) -> np.ndarray:
+    """(n_tail * n_scales, n, n) zero-padded per-axis operator stack: the
+    blur -> subsample cascade is linear, so every tail plane is A^T x_t A
+    with A a product of blur matrices and even-row selections, composed
+    here in float64 (f32 entries, exact f64 products) and rounded once; the
+    JAX package's function, line for line, so the stacks are bitwise equal.
+    ``sig_s`` is the scale-S relative sigma the cascade blurs with before
+    each subsample."""
+    mats = []
+    M = np.eye(n, dtype=np.float64)
+    sz = n
+    for o in range(n_tail):
+        mats.append(M.copy())  # scale 0: the octave base itself
+        for s_rel in rel:
+            mats.append(M @ _blur_matrix_np(sz, s_rel).astype(np.float64))
+        if o + 1 < n_tail:
+            bs = _blur_matrix_np(sz, sig_s).astype(np.float64)
+            nxt = -(-sz // 2)
+            p = np.zeros((sz, nxt), np.float64)
+            p[np.arange(nxt) * 2, np.arange(nxt)] = 1.0
+            M = M @ bs @ p
+            sz = nxt
+    out = np.zeros((len(mats), n, n), np.float32)
+    for i, m in enumerate(mats):
+        out[i, :, : m.shape[1]] = m.astype(np.float32)
+    return out
+
+
+class TailBank(nn.Module):
+    """The last ``n_tail`` octaves of the SIFT pyramid from the first one's
+    (h, w) base: every plane ``A_h[p]^T x A_w[p]`` with the operator stacks of
+    :func:`_sift_tail_mats_np` held as buffers, two batched products for all
+    of them, batched over frames.
+    The forward returns the octaves as views of one (..., P, h, w) result,
+    (..., S+3, H_o, W_o) each."""
+
+    def __init__(self, h: int, w: int, rel, sig_s: float, n_tail: int,
+                 dtype=torch.float32, device=None, precision: str = "highest"):
+        super().__init__()
+        ah = _sift_tail_mats_np(h, tuple(rel), sig_s, n_tail)
+        aw = ah if w == h else _sift_tail_mats_np(w, tuple(rel), sig_s, n_tail)
+        self.register_buffer("ah", torch.from_numpy(ah).to(device=device, dtype=dtype))
+        self.register_buffer("aw", torch.from_numpy(aw).to(device=device, dtype=dtype))
+        self.precision = precision
+        self.n_scales = len(rel) + 1
+        self.shapes = []
+        for _ in range(n_tail):
+            self.shapes.append((h, w))
+            h, w = -(-h // 2), -(-w // 2)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        out = blur_bank(x, self.ah, self.aw, self.precision)
+        n = self.n_scales
+        return [out[..., o * n:(o + 1) * n, :h, :w] for o, (h, w) in enumerate(self.shapes)]
 
 
 class SiftPyramid(nn.Module):
@@ -365,10 +456,13 @@ class SiftPyramid(nn.Module):
     Octave 0 scale 0 is the input brought from ``assumed_blur`` up to sigma0;
     scales 1..S+2 are composed blurs of the octave base; octave o+1 starts
     from octave o's scale S subsampled by 2 (ceil halving of each side).
-    Each blur takes the form :func:`banded_form` names for its shape
-    (:attr:`forms`: the base blur's, then each octave's). An octave comes
-    back as a view: (S+3, H_o, W_o), its planes interleaved by row where
-    banded (:func:`dog_planes` makes a contiguous DoG of it).
+    Each blur takes the form :func:`banded_form` names for its shape; from
+    the first octave whose long side is at most :data:`_SIFT_TAIL_MAX`, where
+    more than one octave is left, the rest come from the :class:`TailBank`
+    (:attr:`forms`: the base blur's, then each octave's: "banded", "dense"
+    or "tail"). Every product runs in ``cfg.blur_precision``. An octave
+    comes back as a view: (S+3, H_o, W_o), its planes interleaved by row
+    where banded (:func:`dog_planes` makes a contiguous DoG of it).
     """
 
     def __init__(self, cfg: PyramidConfig, height: int, width: int | None = None,
@@ -376,7 +470,7 @@ class SiftPyramid(nn.Module):
         super().__init__()
         width = height if width is None else width
         self.cfg = cfg
-        dt = cfg.dtype
+        dt, prec = cfg.dtype, cfg.blur_precision
         base_sigma = math.sqrt(max(cfg.sigma0**2 - cfg.assumed_blur**2, 1e-12))
         rel = _octave_scale_sigmas(cfg)
         self.shapes: list[tuple[int, int]] = []
@@ -384,12 +478,19 @@ class SiftPyramid(nn.Module):
         for _ in range(cfg.n_octaves):
             self.shapes.append((h, w))
             h, w = -(-h // 2), -(-w // 2)
-        self.base = BlurBank(height, width, [base_sigma], False, dt, device)
-        self.banks = nn.ModuleList(BlurBank(h, w, rel, True, dt, device) for h, w in self.shapes)
+        n_oct = len(self.shapes)
+        n_head = next((o for o, hw in enumerate(self.shapes)
+                       if n_oct - o > 1 and max(hw) <= _SIFT_TAIL_MAX), n_oct)
+        self.base = BlurBank(height, width, [base_sigma], False, dt, device, prec)
+        self.banks = nn.ModuleList(BlurBank(h, w, rel, True, dt, device, prec)
+                                   for h, w in self.shapes[:n_head])
+        self.tail = None if n_head == n_oct else TailBank(
+            *self.shapes[n_head], rel, rel[cfg.S - 1], n_oct - n_head, dt, device, prec)
 
     @property
     def forms(self) -> list[str]:
-        return [self.base.form] + [b.form for b in self.banks]
+        n_tail = 0 if self.tail is None else len(self.tail.shapes)
+        return [self.base.form] + [b.form for b in self.banks] + ["tail"] * n_tail
 
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
         """(H, W) image -> list of (S+3, H_o, W_o) Gaussian octaves; (B, H, W)
@@ -403,6 +504,8 @@ class SiftPyramid(nn.Module):
             octave = bank(x)
             octaves.append(octave)
             x = strided_subsample(octave[..., self.cfg.S, :, :], 2)
+        if self.tail is not None:
+            octaves.extend(self.tail(x))
         return octaves
 
 

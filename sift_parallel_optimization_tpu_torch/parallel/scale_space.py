@@ -20,7 +20,9 @@ runs that body on its own shard (``parallel/mesh.py``):
   * SIFT mode: the row-sharded true convolution, as band-matrix products
     over halo-extended rows (the halo posted first, waited for after the
     halo-independent bulk), down to the octave where the rows no longer
-    split; the tail runs unsharded.
+    split; the tail runs unsharded, as the blur -> subsample cascade (the
+    JAX package's sharded pyramid has no composite tail). Every product goes
+    through ``core.pyramid_ref.blur_product`` in ``cfg.blur_precision``.
 
 The REFERENCE paths are plain tensor code on each shard, as in JAX (kernel 1
 computes the unsharded pyramid); each is bitwise equal to the unsharded
@@ -43,6 +45,7 @@ from sift_parallel_optimization_tpu_torch.config import PyramidConfig
 from sift_parallel_optimization_tpu_torch.core.pyramid_ref import (
     BlurBank,
     _blur_stack,
+    blur_product,
     _octave_scale_sigmas,
     _taps_np,
     check_fp32_matmul,
@@ -222,13 +225,21 @@ def _band_matrices(h: int, sigmas) -> tuple[np.ndarray, int]:
 
 
 class _ShardedBank:
-    """One row-sharded blur-bank call: the band slices and the column bank."""
+    """One row-sharded blur-bank call: the band slices and the column bank,
+    every product in ``precision``."""
 
-    def __init__(self, h: int, width: int, sigmas, dtype, device):
+    def __init__(self, h: int, width: int, sigmas, dtype, device, precision: str = "highest"):
         L, self.r = _band_matrices(h, sigmas)
         self.band = torch.from_numpy(L).to(device=device, dtype=dtype)
         self.bank_w = _blur_stack(width, sigmas, dtype, device)
         self.h = h
+        self.precision = precision
+
+    def _rows(self, band: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """band @ (rows @ bank_w): the column pass of ``rows``, then the
+        row pass of one slice of the band."""
+        p = self.precision
+        return blur_product(band, blur_product(rows, self.bank_w, p), p)
 
     def __call__(self, x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         r, h, band = self.r, self.h, self.band
@@ -236,22 +247,22 @@ class _ShardedBank:
         # The halo-independent bulk runs while the strips travel; the band
         # is zero outside [a, a + 2r], so the two boundary terms add exact
         # zeros to the interior rows.
-        out = band[:, :, r:r + h] @ (x @ self.bank_w)
+        out = self._rows(band[:, :, r:r + h], x)
         from_up, from_down = exchange.wait()
-        out = out + band[:, :, :r] @ (from_up @ self.bank_w)
-        return out + band[:, :, r + h:] @ (from_down @ self.bank_w)
+        out = out + self._rows(band[:, :, :r], from_up)
+        return out + self._rows(band[:, :, r + h:], from_down)
 
 
 def sharded_blur_bank(mesh, height: int, width: int, sigmas, axis: str = "spatial",
-                      dtype=torch.float32, device=None):
+                      dtype=torch.float32, device=None, precision: str = "highest"):
     """fn: this rank's (height / n, width) rows -> its (n_sigma, height / n,
     width) rows of the multi-scale blur: a column-bank product and a
     band-matrix row pass over halo-extended rows, one halo exchange (the
-    largest radius) for every scale. Needs height % n == 0 and local rows
-    at least the largest radius."""
+    largest radius) for every scale, every product in ``precision``. Needs
+    height % n == 0 and local rows at least the largest radius."""
     n = axis_size(mesh, axis)
     h = height // n
-    bank = _ShardedBank(h, width, sigmas, dtype, device)
+    bank = _ShardedBank(h, width, sigmas, dtype, device, precision)
     if height % n or h < bank.r:
         raise ValueError(f"{height} rows over {n} ranks cannot hold a {bank.r}-row halo")
     return lambda x: bank(x, mesh, axis)
@@ -270,7 +281,7 @@ class ShardedSiftPyramid:
         width = height if width is None else width
         self.cfg, self.mesh, self.axis = cfg, mesh, axis
         n = axis_size(mesh, axis)
-        dt = cfg.dtype
+        dt, prec = cfg.dtype, cfg.blur_precision
         base_sigma = math.sqrt(max(cfg.sigma0**2 - cfg.assumed_blur**2, 1e-12))
         rel = _octave_scale_sigmas(cfg)
         max_r = max(_taps_np(s)[0] for s in [base_sigma, *rel])
@@ -282,8 +293,8 @@ class ShardedSiftPyramid:
 
         def bank(h, w, sigmas, sharded, with_input):
             if sharded:
-                return _ShardedBank(h // n, w, sigmas, dt, device)
-            return BlurBank(h, w, sigmas, with_input, dt, device)
+                return _ShardedBank(h // n, w, sigmas, dt, device, prec)
+            return BlurBank(h, w, sigmas, with_input, dt, device, prec)
 
         self.n = n
         self.height = height

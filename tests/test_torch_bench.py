@@ -17,7 +17,8 @@ tracking record ``device_ms`` and ``device_top``; a stream
 record ``chain`` (None: a wall, not a chain); the frame-batch records
 ``jax_path``; the pyramid variants ``cuda``/``plain`` stand for
 ``pallas``/``jnp``, the frame-batch path ``per_frame`` for ``vmap``; the
-matrix has no ``blur_precision`` or Pallas ``tile_rows`` records, and its
+matrix has no Pallas ``tile_rows`` records (its ``blur_precision`` records
+are JAX's, field for field), and its
 mesh-shape records are the port's world's factorizations (here 1x1; at 2
 and 4 ranks: tests/test_torch_parallel_scale_space.py, with the scaling
 workload)."""
@@ -51,7 +52,7 @@ VALUE_MAP = {("variant", "jnp"): "plain", ("variant", "pallas"): "cuda",
 # Fields that are configuration, not measurement: equal in both suites.
 CONFIG_FIELDS = ("variant", "S", "max_keypoints", "obs", "solver", "window", "pts_per_frame",
                  "ba_iters", "archive_slots", "frames", "dual_orientation", "batch", "path",
-                 "dtype")
+                 "dtype", "blur_precision")
 TINY = {
     "pyramid": dict(sizes=(64,)),
     "frontend": dict(sizes=(64,), max_keypoints=32),
@@ -150,8 +151,8 @@ def test_records_equal_jax(stubs, workload):
     port = _records(MetricsWriter, getattr(tsuite, fn), device="cpu", **TINY[workload])
     if workload == "matrix":
         jax_mesh = [r for r in jax_recs if r["metric"].startswith("matrix_mesh_shape")]
-        jax_recs = [r for r in jax_recs if "blur_precision" not in r
-                    and not r["metric"].startswith(("matrix_pallas_tile", "matrix_mesh_shape"))]
+        jax_recs = [r for r in jax_recs
+                    if not r["metric"].startswith(("matrix_pallas_tile", "matrix_mesh_shape"))]
         port_mesh = [r for r in port if r["metric"].startswith("matrix_mesh_shape")]
         port = [r for r in port if not r["metric"].startswith("matrix_mesh_shape")]
         # One process: the world is 1, and the sweep's one shape is 1x1.

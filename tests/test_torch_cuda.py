@@ -14,16 +14,22 @@ import torch
 from sift_parallel_optimization_tpu_torch.core import pyramid_ref
 from sift_parallel_optimization_tpu_torch.models import descriptor
 from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
+from sift_parallel_optimization_tpu_torch.ops import blur_product as bp
 from sift_parallel_optimization_tpu_torch.ops import gather_resample as gr
 from sift_parallel_optimization_tpu_torch.ops import patch_gather as pg
 from sift_parallel_optimization_tpu_torch.ops import scale_space as ss
 from sift_parallel_optimization_tpu_torch.ops import score_tables as st
 from sift_parallel_optimization_tpu_torch.utils import native
+from sift_parallel_optimization_tpu_torch.utils.device import fp32_matmul
 
 pytestmark = pytest.mark.cuda
 
 # Kernel 4 against its plain version (batched matmuls that may sum with FMAs).
 RTOL, ATOL = 1e-5, 1e-6
+# The SIFT pyramid at blur_precision="high", card against CPU: both run the
+# same bf16x3 products (kernel 5 and its plain version) and differ by their
+# summation order, far below the 3e-5 the CPU tests allow against JAX.
+HIGH_ATOL = 3e-5
 
 
 @pytest.fixture
@@ -227,6 +233,76 @@ def test_gather_resample_kernel_matches_plain(dev):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
 
 
+def kernel5_tol(a, b):
+    """Kernel 5 against its plain version, elementwise: both sum the same 3k
+    products, exact in f32, in fp32 and in another order (the tensor cores
+    accumulate in their own order and rounding): (3k + 2) * 2^-22 of
+    |A| |B|."""
+    with fp32_matmul():
+        return (3 * a.shape[-1] + 2) * 2.0**-22 * (a.abs() @ b.abs())
+
+
+def _kernel5_operands(kind, dev):
+    g = torch.Generator().manual_seed(len(kind))
+    f = lambda *shape: torch.randn(*shape, generator=g).to(dev)
+    if kind == "ragged":
+        return f(3, 70, 37), f(3, 37, 53), None
+    if kind == "several tiles":
+        return f(2, 150, 94), f(2, 94, 200), None
+    if kind == "k=1":
+        return f(2, 9, 1), f(2, 1, 5), None
+    if kind == "overlapping windows":
+        return f(10, 384, 94), f(10 * 64 + 30, 576).as_strided((10, 94, 576), (64 * 576, 576, 1)), None
+    if kind == "column windows into out":
+        out = torch.zeros(512, 6 * 576, device=dev)
+        return (f(512, 6 * 576).as_strided((53, 512, 94), (64, 6 * 576, 1)), f(53, 94, 64),
+                out.as_strided((53, 512, 64), (64, 6 * 576, 1)))
+    if kind == "broadcast frames":
+        return f(3, 1, 100, 120), f(5, 120, 120), None
+    if kind == "subsample and transposed bank":
+        return f(5, 128, 128).transpose(-1, -2), f(2, 256, 256)[:, None, ::2, ::2], None
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["ragged", "several tiles", "k=1", "overlapping windows",
+                                  "column windows into out", "broadcast frames",
+                                  "subsample and transposed bank"])
+def test_bf16x3_kernel_matches_plain(dev, kind):
+    a, b, out = _kernel5_operands(kind, dev)
+    before = bp.LAUNCHES
+    got = bp.bf16x3_bmm_cuda(a, b, out=out)
+    want = bp.bf16x3_bmm_plain(a, b)
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES == before + 1 and got.shape == want.shape
+    assert bool(((got - want).abs() <= kernel5_tol(a, b)).all()), float((got - want).abs().max())
+    # The 3-pass function, not the fp32 product.
+    with fp32_matmul():
+        exact = (a.double() @ b.double())
+        assert float((got.double() - exact).abs().max()) > 4 * float(
+            ((a @ b).double() - exact).abs().max())
+    if out is not None:
+        base = out.as_strided((512, 6 * 576), (6 * 576, 1))
+        assert bool((base[:, 53 * 64:] == 0).all())       # columns no window writes
+
+
+@pytest.mark.parametrize("size", [512, 256])
+def test_sift_pyramid_high_on_the_card_matches_cpu(dev, size):
+    """512^2: banded base and octave 0, dense 256^2 and 128^2, the tail: two
+    kernel 5 launches a blur call (10 for one frame, the same for two)."""
+    cfg = sift_config(size, blur_precision="high")
+    frames = np.stack([native.synth_frame(size, i, seed=0) for i in range(2)])
+    pyr = pyramid_ref.SiftPyramid(cfg, size, device=dev)
+    before = bp.LAUNCHES
+    got = pyr(torch.from_numpy(frames).to(dev))
+    torch.cuda.synchronize()
+    calls = 1 + len(pyr.banks) + 1
+    assert bp.LAUNCHES == before + 2 * calls
+    want = pyramid_ref.SiftPyramid(cfg, size, device="cpu")(torch.from_numpy(frames))
+    for o, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0, atol=HIGH_ATOL,
+                                   err_msg=f"octave {o}")
+
+
 def test_profile_device_counts_every_timed_launch(dev):
     """One kernel a call: the device-time helper sees exactly ``iters``
     device records inside its timed range (a profiler run can lose its
@@ -272,6 +348,10 @@ def test_wrappers_check_inputs(dev):
     idx = torch.zeros(3, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError, match="int32"):
         pg.extract_atlas_patches_cuda(atlas, idx, idx, 8, 8)
+    with pytest.raises(ValueError, match="f32"):
+        bp.bf16x3_bmm_cuda(atlas.to(torch.bfloat16), atlas.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="inner stride"):
+        bp.bf16x3_bmm_cuda(atlas, atlas, out=torch.empty(64, 64, device=dev).t())
 
 
 def test_main_path_launches_the_kernels(dev, monkeypatch):

@@ -13,8 +13,9 @@ from sift_parallel_optimization_tpu_torch.models import frontend as tfe
 from sift_parallel_optimization_tpu_torch.utils import native as tnative
 
 SIZE, K = 256, 256
-# Coordinates: the pyramids agree to ~3e-7 (the JAX tail uses precomposed
-# operators) and detection runs the same expressions, so 1e-4 px. Orientation
+# Coordinates: the pyramids run the same products (the composite tail
+# included) and agree to f32 summation order, and detection runs the same
+# expressions, so 1e-4 px. Orientation
 # and descriptors: 1e-3, the batched-vs-serial tolerance that
 # tests/test_sift_frontend.py sets between two JAX programs.
 COORD_ATOL = 1e-4

@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     for name in ("models.frontend", "models.geometry", "models.ba", "models.matching",
                  "models.sfm", "models.odometry", "parallel.frontend", "utils.device",
-                 "utils.native", "utils.profiling", "cli", "bench.roofline", "bench.suite"):
+                 "utils.native", "utils.profiling", "cli", "bench.roofline", "bench.suite",
+                 "ops.blur_product", "core.numpy_golden"):
         assert f"sift_parallel_optimization_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -193,8 +194,11 @@ def test_config_from_jax_fields_round_trips():
               "n_scales", "n_dog"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
     assert cfg.sift_sigmas() == jcfg.sift_sigmas()
-    with pytest.raises(ValueError, match="highest"):
-        tconfig.PyramidConfig(blur_precision="high")
+    # As the JAX package's test_blur_precision_knob: "high" (3-pass bf16)
+    # is accepted, the 1-pass "default" refused.
+    assert tconfig.PyramidConfig(blur_precision="high").blur_precision == "high"
+    with pytest.raises(ValueError, match="default"):
+        tconfig.PyramidConfig(blur_precision="default")
 
 
 def test_octave_counts_match_jax():
@@ -291,8 +295,8 @@ def test_native_loader_rebuilds_a_half_written_library(tmp_path, monkeypatch):
 
 def test_kernel_sources_hash_covers_every_source():
     names = [p.name for p in _build._sources()]
-    assert names == ["gather_resample.cu", "patch_gather.cu", "reference_dog.cu",
-                     "score_tables.cu"]
+    assert names == ["bf16x3_mm.cu", "gather_resample.cu", "patch_gather.cu",
+                     "reference_dog.cu", "score_tables.cu"]
     assert _build.source_hash() == _build.source_hash()
     assert len(_build.source_hash()) == 64
 

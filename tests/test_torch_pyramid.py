@@ -13,8 +13,10 @@ import torch
 import sift_parallel_optimization_tpu.ops.scale_space_pallas as jssp
 from sift_parallel_optimization_tpu.config import PyramidConfig as JaxConfig
 from sift_parallel_optimization_tpu.config import ScaleSpaceMode as JaxMode
+from sift_parallel_optimization_tpu.core import numpy_golden as jgolden
 from sift_parallel_optimization_tpu.core import pyramid_ref as jpr
 from sift_parallel_optimization_tpu_torch.config import PyramidConfig, ScaleSpaceMode
+from sift_parallel_optimization_tpu_torch.core import numpy_golden as tgolden
 from sift_parallel_optimization_tpu_torch.core import pyramid_ref as tpr
 from sift_parallel_optimization_tpu_torch.ops import scale_space as tss
 from sift_parallel_optimization_tpu_torch.utils import native as tnative
@@ -23,10 +25,14 @@ from sift_parallel_optimization_tpu_torch.utils import native as tnative
 # computes prev - g where the jnp form computes base * (W_s - W_{s+1}), so
 # the two agree to f32 rounding, not bitwise.
 REF_RTOL, REF_ATOL = 1e-5, 1e-6
-# SIFT: the JAX tail octaves (<= 64^2) use precomposed operators, within
-# ~1e-7 of the port's plain blur -> subsample cascade (their docstring);
-# 1e-5 leaves room for f32 summation order in the dense products.
+# SIFT: both packages compute the same products (dense or banded blurs down
+# to the octaves of side <= 64, then the composite tail from the same
+# operator stacks), which may sum in another order in XLA and in PyTorch;
+# 1e-5 on [0, 1] frames leaves room for that order over an octave cascade.
 SIFT_ATOL = 1e-5
+# The tail octaves alone: one pair of products from a base that itself
+# agrees to f32 rounding (the CPU runs of this tree read them bitwise equal).
+TAIL_ATOL = 1e-6
 
 
 @pytest.fixture
@@ -197,25 +203,30 @@ def test_blur_bank_banded_matches_dense_and_jax(h, w):
 @pytest.mark.parametrize("h,w", [(512, 512), (376, 1241), (200, 100)])
 def test_sift_pyramid_blurs_take_the_dispatched_form(monkeypatch, h, w):
     """Every blur of the pyramid takes the form its shape names, on one frame
-    and on a batch of two; the all-dense pyramid (cutoff out of reach)
-    agrees within the banded bound, and scale 0 of a banded octave is its
-    base exactly."""
+    and on a batch of two, down to the first octave of side <= 64 with more
+    than one octave left, from which the tail takes them; the all-dense
+    pyramid (cutoff out of reach) agrees within the banded bound, and scale
+    0 of every octave down to the tail's first is its base exactly."""
     cfg = PyramidConfig(length=h, S=3, mode=ScaleSpaceMode.SIFT)
     frames = torch.from_numpy(np.random.default_rng(5).random((2, h, w), dtype=np.float32))
     pyr = tpr.SiftPyramid(cfg, h, w)
-    sides = [(h, w)] + pyr.shapes
-    assert pyr.forms == ["banded" if tpr.banded_form(*hw) else "dense" for hw in sides]
+    n = len(pyr.shapes)
+    head = next((o for o, hw in enumerate(pyr.shapes)
+                 if n - o > 1 and max(hw) <= tpr._SIFT_TAIL_MAX), n)
+    sides = [(h, w)] + pyr.shapes[:head]
+    assert pyr.forms == (["banded" if tpr.banded_form(*hw) else "dense" for hw in sides]
+                         + ["tail"] * (n - head))
     assert pyr.forms[0] == ("banded" if max(h, w) >= tpr._BANDED_MIN_SIZE else "dense")
     got, batch = pyr(frames[1]), pyr(frames)
     monkeypatch.setattr(tpr, "_BANDED_MIN_SIZE", 1 << 30)
     dense = tpr.SiftPyramid(cfg, h, w)
-    assert set(dense.forms) == {"dense"}
+    assert set(dense.forms) == {"dense"} | ({"tail"} if head < n else set())
     want = dense(frames[1])
     for o, (g, b, d) in enumerate(zip(got, batch, want)):
-        assert g.shape == b.shape[1:] == d.shape
+        assert g.shape == b.shape[1:] == d.shape == (cfg.S + 3, *pyr.shapes[o])
         np.testing.assert_allclose(g.numpy(), d.numpy(), rtol=0, atol=BANDED_ATOL, err_msg=f"{o}")
         np.testing.assert_allclose(b[1].numpy(), g.numpy(), rtol=0, atol=BANDED_ATOL)
-        if o + 1 < len(got):
+        if o < head and o + 1 < len(got):
             assert torch.equal(got[o + 1][0], g[cfg.S, ::2, ::2])
     dogs = tpr.sift_dog_pyramid(frames[1], cfg)
     assert all(d.is_contiguous() for d in dogs)
@@ -239,3 +250,62 @@ def test_strided_subsample_matches_jax(step):
     got = tpr.strided_subsample(torch.from_numpy(img), step).numpy()
     assert got.shape == want.shape == (-(-37 // step), -(-29 // step))
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The composite-operator tail and the NumPy golden model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,S,n_tail", [(64, 3, 4), (47, 2, 3), (16, 3, 2), (64, 5, 1)])
+def test_sift_tail_mats_equal_jax(n, S, n_tail):
+    """The operator stacks: the same float64 composition, bit for bit."""
+    rel = tuple(tpr._octave_scale_sigmas(PyramidConfig(length=512, S=S, mode=ScaleSpaceMode.SIFT)))
+    got = tpr._sift_tail_mats_np(n, rel, rel[S - 1], n_tail)
+    assert got.shape == (n_tail * (S + 3), n, n) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, jpr._sift_tail_mats_np(n, rel, rel[S - 1], n_tail))
+
+
+@pytest.mark.parametrize("size", [256, 512])
+def test_sift_tail_octaves_match_jax_single_and_batched(size):
+    """The octaves of side <= 64 come from the tail in both packages: within
+    TAIL_ATOL of JAX's, one frame a call and two frames in one call."""
+    cfg = PyramidConfig(length=size, S=3, mode=ScaleSpaceMode.SIFT)
+    jcfg = JaxConfig(length=size, S=3, mode=JaxMode.SIFT)
+    frames = np.stack([tnative.synth_frame(size, i, seed=2) for i in range(2)])
+    pyr = tpr.SiftPyramid(cfg, size)
+    assert pyr.tail is not None and pyr.forms.count("tail") == len(pyr.tail.shapes) == 4
+    batch = pyr(torch.from_numpy(frames))
+    jfn = jax.jit(lambda x: jpr.sift_gaussian_pyramid(x, jcfg))
+    for i in range(2):
+        want = jfn(jnp.asarray(frames[i]))
+        one = pyr(torch.from_numpy(frames[i].copy()))
+        tail = [o for o, w in enumerate(want) if w.shape[-1] <= tpr._SIFT_TAIL_MAX]
+        assert len(tail) == 4
+        for o in tail:
+            for got in (one[o], batch[o][i]):
+                assert got.shape == want[o].shape
+                np.testing.assert_allclose(got.numpy(), np.asarray(want[o]), rtol=0,
+                                           atol=TAIL_ATOL, err_msg=f"frame {i} octave {o}")
+
+
+@pytest.mark.parametrize("size,S", [(32, 2), (64, 3), (128, 2)])
+def test_golden_dog_pyramid_matches_jax_and_the_plain_pyramid(size, S):
+    """The port's copy of the NumPy oracle equals the JAX package's bit for
+    bit, and the port's REFERENCE plain pyramid matches it within the
+    REFERENCE tolerance (the plain version computes base * (W_s - W_s+1)
+    where the oracle subtracts windowed planes)."""
+    img = np.random.default_rng(size + S).random((size, size), dtype=np.float32)
+    got = tgolden.golden_dog_pyramid(img, S)
+    want = jgolden.golden_dog_pyramid(img, S)
+    assert len(got) == len(want) == tpr.num_octaves(size)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+    for s in range(S + 3):
+        np.testing.assert_array_equal(tgolden.golden_filter(size, s),
+                                      jgolden.golden_filter(size, s))
+    plain = tss.reference_dog_pyramid_plain(torch.from_numpy(img), S)
+    for o, (p, g) in enumerate(zip(plain, got)):
+        np.testing.assert_allclose(p.numpy(), g, rtol=REF_RTOL, atol=REF_ATOL,
+                                   err_msg=f"octave {o}")

@@ -370,8 +370,24 @@ def suite_mesh_sweep(mesh, world: int) -> dict:
     return {"mesh_sweep": np.array([json.dumps(r) for r in records])}
 
 
+def suite_blur_precision(mesh, world: int) -> dict:
+    """The sharded SIFT pyramid with its products at blur_precision="high"."""
+    import torch
+
+    from sift_parallel_optimization_tpu_torch.config import PyramidConfig, ScaleSpaceMode
+    from sift_parallel_optimization_tpu_torch.parallel import scale_space as ss
+
+    cfg = PyramidConfig(length=256, S=2, mode=ScaleSpaceMode.SIFT, max_octaves=3,
+                        blur_precision="high")
+    pyr = ss.sharded_sift_gaussian_pyramid(torch.from_numpy(unit_image(256, 3)), cfg, mesh)
+    out = {"placements": np.array([str(d.placements[1]) for d in pyr])}
+    out.update({f"sift_pyr/{o}": _np(d.full_tensor()) for o, d in enumerate(pyr)})
+    return out
+
+
 # suite -> (cases run on every mesh shape, cases run once a world).
 SUITES = {"scale_space": ((suite_scale_space,), (suite_dryrun, suite_mesh_sweep)),
+          "blur_precision": ((suite_blur_precision,), ()),
           "data": ((suite_data,), (suite_sfm,)),
           "ba": ((suite_ba,), ())}
 
