@@ -178,7 +178,8 @@ SHAPED_WRAPPERS = (
      lambda atlas, grow, x0, params: (tuple(atlas.shape), tuple(grow.shape),
                                       tuple(params.shape))),
     ("blur_product", "bf16x3_bmm_cuda", "bf16x3_mm",
-     lambda a, b, out=None: (tuple(a.shape), a.stride(), tuple(b.shape), b.stride(),
+     lambda a, b, out=None: (type(a).__name__, tuple(a.shape), a.stride(), type(b).__name__,
+                             tuple(b.shape), b.stride(),
                              None if out is None else (tuple(out.shape), out.stride()))),
 )
 LAUNCHED: dict = {}
@@ -1915,11 +1916,76 @@ def banded_phase(torch, dev):
 
 def kernel5_tol(torch, a, b):
     """Kernel 5 against its plain version, elementwise: (3k + 2) * 2^-22 of
-    |A| |B| (both sum the same 3k exact products in fp32, in other orders)."""
+    |A| |B| (both sum the same 3k exact products in fp32, in other orders);
+    a split pair's |A| is |hi + lo|."""
+    from sift_parallel_optimization_tpu_torch.ops.blur_product import SplitPair
     from sift_parallel_optimization_tpu_torch.utils.device import fp32_matmul
 
+    a, b = (x.dense() if isinstance(x, SplitPair) else x for x in (a, b))
     with fp32_matmul():
         return (3 * a.shape[-1] + 2) * 2.0**-22 * (a.abs() @ b.abs())
+
+
+def kernel5_launch_times(torch, size, img, peaks):
+    """Kernel 5 alone at each launch of one "high" ``SiftPyramid`` call on
+    ``img`` (size^2): per launch (A's shape, B's shape, device ms of the
+    kernel, of its plain version, of the fp32 product that the "highest"
+    pyramid runs at the same launch on its own operands (``torch.bmm`` /
+    ``torch.matmul``), and the bound (ms, what binds)). Uses only what the
+    port has had since kernel 5 was added, so ``tools/kernel5_ab.py`` times
+    an older tree with it too."""
+    from sift_parallel_optimization_tpu_torch.bench import roofline as R
+    from sift_parallel_optimization_tpu_torch.core import pyramid_ref as pr
+    from sift_parallel_optimization_tpu_torch.models.frontend import sift_config
+    from sift_parallel_optimization_tpu_torch.ops import blur_product as bp
+    from sift_parallel_optimization_tpu_torch.utils.profiling import device_kernel_ms
+
+    kernel, product = bp.bf16x3_bmm_cuda, pr.blur_product
+    args = {"high": [], "highest": []}
+
+    def noted_kernel(a, b, out=None):
+        args["high"].append((a, b, out))
+        return kernel(a, b, out=out)
+
+    def noted_product(a, b, precision="highest", out=None):
+        if precision == "highest":
+            args[precision].append((a, b, out))
+        return product(a, b, precision, out)
+
+    bp.bf16x3_bmm_cuda, pr.blur_product = noted_kernel, noted_product
+    try:
+        for prec in ("high", "highest"):
+            pr.SiftPyramid(sift_config(size, blur_precision=prec), size, device=img.device)(img)
+    finally:
+        bp.bf16x3_bmm_cuda, pr.blur_product = kernel, product
+    check(len(args["high"]) == len(args["highest"]),
+          f"high: {len(args['high'])} kernel 5 launches, {len(args['highest'])} fp32 products")
+    rows = []
+    for (a, b, o), (fa, fb, fo) in zip(args["high"], args["highest"]):
+        check(tuple(fa.shape) == tuple(a.shape) and tuple(fb.shape) == tuple(b.shape),
+              f"high: launch {tuple(a.shape)}@{tuple(b.shape)} against the fp32 product "
+              f"{tuple(fa.shape)}@{tuple(fb.shape)}")
+        batch = int(np.prod(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])))
+        model = R.bf16x3_product_model(batch, a.shape[-2], b.shape[-1], a.shape[-1],
+                                       R.strided_elems(a), R.strided_elems(b))
+        rows.append((tuple(a.shape), tuple(b.shape),
+                     device_kernel_ms(bp.bf16x3_bmm_cuda, a, b, o, iters=10),
+                     device_kernel_ms(bp.bf16x3_bmm_plain, a, b, o, iters=10),
+                     device_kernel_ms(pr.blur_product, fa, fb, "highest", fo, iters=10),
+                     model.kernel_bound(peaks)))
+    return rows
+
+
+def kernel5_table(size, rows) -> str:
+    """The per-launch table of :func:`kernel5_launch_times` as one line."""
+    total = [sum(t[i] for t in rows) for i in (2, 3, 4)]
+    bound = sum(t[5][0] for t in rows)
+    return (f"kernel 5 device ms at the {size}^2 pyramid's launches (kernel / plain / fp32 "
+            f"product of highest / bound, share of bound): " + "; ".join(
+                f"{sa}@{sb}: {m:.4f} / {p:.4f} / {f:.4f} / {bd[0]:.4f} ({bd[1]}, "
+                f"{100 * bd[0] / m:.0f}%)" for sa, sb, m, p, f, bd in rows)
+            + f"; all {len(rows)}: kernel {total[0]:.4f}, plain {total[1]:.4f}, fp32 "
+            f"{total[2]:.4f}, bound {bound:.4f} ms")
 
 
 def matched_share(torch, got, ref, px):
@@ -1935,22 +2001,27 @@ def matched_share(torch, got, ref, px):
 
 
 def high_phase(torch, dev, frames, feats, counters, peaks):
-    """blur_precision="high" on the card: kernel 5 held to its plain version
-    at every launch of the 512^2 and 1024^2 pyramids on 1 and BATCH frames;
-    the paths "high 512", "high 1024" and "high batched 512" counted; the
-    pyramid's device ms and ops, keypoints a frame, the share matched and the
-    largest Gaussian-plane difference, "highest" against "high"; kernel 5's
-    device ms at each launch of the 512^2 pyramid beside its plain version,
-    the fp32 product "highest" runs at the same operands and its bound.
-    Returns (the paths' launches, kernel 5's numbers for the kernels line)."""
-    from sift_parallel_optimization_tpu_torch.bench import roofline as R
+    """blur_precision="high" on the card: kernel 5's build (registers, shared
+    memory, CTAs an SM of the three instances the pyramid runs); kernel 5 held
+    to its plain version at every launch of the 512^2 and 1024^2 pyramids on
+    1 and BATCH frames; the paths "high 512", "high 1024" and "high batched
+    512" counted; the pyramid's device ms and ops, keypoints a frame, the
+    share matched and the largest Gaussian-plane difference, "highest"
+    against "high"; kernel 5's device ms at each launch of both pyramids
+    beside its plain version, the fp32 product "highest" runs there and its
+    bound. Returns (the paths' launches, kernel 5's numbers for the kernels
+    line)."""
     from sift_parallel_optimization_tpu_torch.core import pyramid_ref as pr
     from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
     from sift_parallel_optimization_tpu_torch.ops import blur_product as bp
     from sift_parallel_optimization_tpu_torch.parallel.frontend import batched_extract_features
-    from sift_parallel_optimization_tpu_torch.utils.profiling import device_kernel_ms
 
     t0 = time.perf_counter()
+    built = {kinds: bp.kernel_attributes(*kinds) for kinds in bp.PYRAMID_INSTANCES}
+    for kinds, got in built.items():
+        # 4 CTAs an SM; 3 for the stride-2 bases' instance (61,440 bytes).
+        check(got["local_bytes"] == 0 and got["ctas_per_sm"] >= (3 if kinds[2] else 4),
+              f"high: kernel 5 (A split, B split, A step 2: {kinds}) built as {got}")
     kernel = bp.bf16x3_bmm_cuda
     seen, err = [], [0.0]
 
@@ -2034,31 +2105,22 @@ def high_phase(torch, dev, frames, feats, counters, peaks):
             f"Gaussian-plane difference {diff:.3e}; kernel 5 launches a pyramid call "
             f"{n_launch[size, 1]} (1 frame), {n_launch[size, BATCH]} ({BATCH} frames)")
 
-    # Kernel 5 alone at each launch of the one-frame 512^2 pyramid: device ms
-    # of the kernel, its plain version and the fp32 product that "highest"
-    # runs at the same operands (torch.bmm / torch.matmul), and its bound.
-    times = []
-    for a, b, o in launch_args[HIGH_SIZES[0], 1]:
-        batch = int(np.prod(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])))
-        model = R.bf16x3_product_model(batch, a.shape[-2], b.shape[-1], a.shape[-1],
-                                       R.strided_elems(a), R.strided_elems(b))
-        times.append((tuple(a.shape), tuple(b.shape),
-                      device_kernel_ms(bp.bf16x3_bmm_cuda, a, b, o, iters=10),
-                      device_kernel_ms(bp.bf16x3_bmm_plain, a, b, o, iters=10),
-                      device_kernel_ms(pr.blur_product, a, b, "highest", o, iters=10),
-                      model.kernel_bound(peaks)))
-    total = [sum(t[i] for t in times) for i in (2, 3, 4)]
+    # Kernel 5 alone at each launch of the one-frame pyramids.
+    times = {size: kernel5_launch_times(torch, size, imgs[size][0], peaks)
+             for size in HIGH_SIZES}
     # The kernels line's entry: the 512^2 octave 0 row pass (the largest
     # launch of the path), the third launch of the pyramid call.
-    rep = times[2]
-    phase("high", f"kernel 5 held to plain at {sum(n_launch.values())} launches "
+    rep = times[HIGH_SIZES[0]][2]
+    phase("high", "kernel 5 built as " + "; ".join(
+              f"A {'split' if a else 'f32'}{' (columns 2 apart)' if a2 else ''}, B "
+              f"{'split' if b else 'f32'}: {got['registers']} "
+              f"registers, {got['static_smem']} static + {got['dynamic_smem']} dynamic shared "
+              f"bytes, {got['local_bytes']} local bytes, {got['ctas_per_sm']} CTAs an SM"
+              for (a, b, a2), got in built.items())
+          + f"; held to plain at {sum(n_launch.values())} launches "
           f"({len(HELD['bf16x3_mm'])} shapes) in {held_s:.1f} s, max_abs_err {err[0]:.3e} (atol "
-          f"(3k + 2) * 2^-22 |A||B|); " + "; ".join(lines) + "; kernel 5 device ms at the 512^2 "
-          f"pyramid's launches (kernel / plain / fp32 product of highest / bound): " + "; ".join(
-              f"{sa}@{sb}: {m:.4f} / {p:.4f} / {f:.4f} / {bd[0]:.4f} ({bd[1]})"
-              for sa, sb, m, p, f, bd in times)
-          + f"; all {len(times)}: kernel {total[0]:.4f}, plain {total[1]:.4f}, fp32 "
-          f"{total[2]:.4f} ms")
+          f"(3k + 2) * 2^-22 |A||B|); " + "; ".join(lines) + "; " + "; ".join(
+              kernel5_table(size, rows) for size, rows in times.items()))
     return launches, {"err": err[0], "ms": rep[2], "plain_ms": rep[3], "fp32_ms": rep[4],
                       "bound": rep[5], "shape": (rep[0], rep[1])}
 

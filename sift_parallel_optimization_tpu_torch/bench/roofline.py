@@ -53,6 +53,7 @@ import torch
 
 from sift_parallel_optimization_tpu_torch.config import PyramidConfig, num_octaves
 from sift_parallel_optimization_tpu_torch.core.pyramid_ref import _octave_scale_sigmas
+from sift_parallel_optimization_tpu_torch.ops.blur_product import SplitPair
 
 
 @dataclasses.dataclass(frozen=True)
@@ -445,10 +446,14 @@ def score_rows_model(planes: int, h: int, w: int) -> CostModel:
                      elementwise_flops=130.0 * vox, note=f"score tables rows {planes}x{h}x{w}")
 
 
-def strided_elems(x: torch.Tensor) -> int:
+def strided_elems(x) -> int:
     """Distinct elements a strided view ``x`` reads: a broadcast dimension
     (stride 0) once, overlapping windows (a batch stride below the row
-    stride) once where they overlap."""
+    stride) once where they overlap. A split pair (``ops.blur_product.
+    SplitPair``) counts its entries as the f32 matrix's: a bf16 hi and lo
+    are an f32 entry's 4 bytes."""
+    if isinstance(x, SplitPair):
+        x = x.hi
     offsets = torch.zeros((), dtype=torch.int64, device=x.device)
     for size, stride in zip(x.shape, x.stride()):
         offsets = (offsets[..., None]

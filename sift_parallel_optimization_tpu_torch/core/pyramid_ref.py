@@ -16,7 +16,8 @@
   blur product goes through :func:`blur_product`, in the arithmetic that
   ``PyramidConfig.blur_precision`` names: full fp32 ("highest") or the 3-pass
   bf16 product ("high", kernel 5 on the card). The matrices live on the
-  device as buffers of :class:`SiftPyramid`.
+  device as buffers of :class:`SiftPyramid`: f32, or at "high" split once
+  into bf16 pairs when the module is built (:class:`_BlurMatrices`).
 """
 
 from __future__ import annotations
@@ -34,7 +35,11 @@ from sift_parallel_optimization_tpu_torch.config import (
     PyramidConfig,
     num_octaves,
 )
-from sift_parallel_optimization_tpu_torch.ops.blur_product import bf16x3_bmm
+from sift_parallel_optimization_tpu_torch.ops.blur_product import (
+    SplitPair,
+    bf16x3_bmm,
+    split_pair,
+)
 
 # ---------------------------------------------------------------------------
 # REFERENCE mode
@@ -190,13 +195,14 @@ def _blur_stack(size: int, sigmas, dtype, device) -> torch.Tensor:
     return torch.stack([blur_matrix(size, s, dtype, device) for s in sigmas])
 
 
-def blur_product(a: torch.Tensor, b: torch.Tensor, precision: str = "highest",
+def blur_product(a, b, precision: str = "highest",
                  out: torch.Tensor | None = None) -> torch.Tensor:
     """``a @ b``, broadcast over batch dimensions, for every blur of the SIFT
     pyramid: "highest" is ``torch.bmm`` (into ``out``) on two 3-D operands
     and ``torch.matmul`` otherwise, in full fp32; "high" the 3-pass bf16
     product (``ops/blur_product.bf16x3_bmm``: kernel 5 on a CUDA tensor, its
-    plain version on the CPU), every operand read in place."""
+    plain version on the CPU), every operand read in place, a constant one
+    as the :class:`SplitPair` its module holds."""
     if precision == "high":
         return bf16x3_bmm(a, b, out=out)
     if precision != "highest":
@@ -210,9 +216,15 @@ def blur_bank(x: torch.Tensor, bank_h: torch.Tensor, bank_w: torch.Tensor,
               precision: str = "highest") -> torch.Tensor:
     """(H, W) image -> (S', H, W): out_s = B^H_s^T @ x @ B^W_s. (B, H, W)
     frames -> (B, S', H, W): the same products broadcast over the frames."""
+    return _blur_dense(x, bank_h.transpose(-1, -2), bank_w, precision)
+
+
+def _blur_dense(x: torch.Tensor, bank_ht, bank_w, precision: str) -> torch.Tensor:
+    """:func:`blur_bank` with the row bank given transposed, ``bank_ht`` =
+    B^H^T (a transposed view, or the split pair stored so)."""
     if x.dim() == 3:
         x = x[:, None]
-    return blur_product(bank_h.transpose(-1, -2), blur_product(x, bank_w, precision), precision)
+    return blur_product(bank_ht, blur_product(x, bank_w, precision), precision)
 
 
 def check_fp32_matmul(x: torch.Tensor) -> None:
@@ -289,8 +301,8 @@ def _band_operands(h: int, w: int, sigmas, bw: int = BAND_WIDTH, with_input: boo
     return rows, blk_w.reshape(-1, k, bw), r, bw
 
 
-def _blur_banded(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, r: int,
-                 bw: int, precision: str = "highest") -> torch.Tensor:
+def _blur_banded(x: torch.Tensor, rows, cols, r: int, bw: int,
+                 precision: str = "highest") -> torch.Tensor:
     """(..., H, W) -> (..., n, H, W) through :func:`_band_operands`' blocks:
     one pad and two batched products, each over windows of the previous
     result viewed in place (no copy of a window).
@@ -309,7 +321,9 @@ def _blur_banded(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, r: int
     floats into each row of t, one stride for every (p, jb); it runs on into
     plane p + 1 (zero rows of the block meet it), and the last, a zero
     block of the last plane, is not computed. The result is laid out as
-    (row, plane, column) and returned as a (..., n, H, W) view of it."""
+    (row, plane, column) and returned as a (..., n, H, W) view of it.
+    ``rows`` and ``cols`` may be split pairs (at "high"): they index and
+    repeat as the f32 blocks do."""
     check_fp32_matmul(x)
     lead, (h, w) = x.shape[:-2], x.shape[-2:]
     b = math.prod(lead)
@@ -351,7 +365,52 @@ def banded_form(h: int, w: int) -> bool:
     return max(h, w) >= _BANDED_MIN_SIZE
 
 
-class BlurBank(nn.Module):
+def hold(mat: torch.Tensor, precision: str):
+    """A constant blur matrix as its products take it: the f32 matrix at
+    "highest", split once into a :class:`SplitPair` at "high" (which is then
+    held instead of the f32 copy)."""
+    return split_pair(mat) if precision == "high" else mat
+
+
+class _BlurMatrices(nn.Module):
+    """A module holding a blur call's constant matrices as buffers, f32 at
+    "highest"; at "high" each is split once, here, and held as its pair's
+    parts (one bf16 buffer, no f32 copy), in the layout kernel 5 reads: a
+    row pass's bank B^T stored transposed and contiguous (buffer
+    ``<name>_t``, :meth:`_hold_row_bank`), where "highest" reads B
+    transposed in place."""
+
+    def __init__(self, precision: str):
+        super().__init__()
+        self.precision = precision
+        self._cols: dict[str, int] = {}
+
+    def _hold(self, name: str, mat: torch.Tensor) -> None:
+        held = hold(mat, self.precision)
+        if isinstance(held, SplitPair):
+            self._cols[name] = held.cols
+            held = held.parts
+        self.register_buffer(name, held)
+
+    def _held(self, name: str):
+        """Buffer ``name`` as the products take it."""
+        buf = getattr(self, name)
+        return SplitPair(buf, self._cols[name]) if name in self._cols else buf
+
+    def _hold_row_bank(self, name: str, mat: torch.Tensor) -> None:
+        if self.precision == "high":
+            self._hold(name + "_t", mat.transpose(-1, -2).contiguous())
+        else:
+            self._hold(name, mat)
+
+    def _row_bank(self, name: str):
+        """B^T of a bank held by :meth:`_hold_row_bank`."""
+        if self.precision == "high":
+            return self._held(name + "_t")
+        return getattr(self, name).transpose(-1, -2)
+
+
+class BlurBank(_BlurMatrices):
     """One blur call of the SIFT pyramid on (..., h, w) inputs, its matrices
     held as buffers: the dense Toeplitz pair or, where :func:`banded_form`,
     the band blocks. ``with_input`` puts the input itself first (an octave:
@@ -360,17 +419,16 @@ class BlurBank(nn.Module):
 
     def __init__(self, h: int, w: int, sigmas, with_input: bool, dtype=torch.float32,
                  device=None, precision: str = "highest"):
-        super().__init__()
+        super().__init__(precision)
         self.banded = banded_form(h, w)
         self.with_input = with_input
-        self.precision = precision
         if self.banded:
             rows, cols, self.r, self.bw = _band_operands(h, w, sigmas, with_input=with_input)
-            self.register_buffer("rows", torch.from_numpy(rows).to(device=device, dtype=dtype))
-            self.register_buffer("cols", torch.from_numpy(cols).to(device=device, dtype=dtype))
+            self._hold("rows", torch.from_numpy(rows).to(device=device, dtype=dtype))
+            self._hold("cols", torch.from_numpy(cols).to(device=device, dtype=dtype))
         else:
-            self.register_buffer("bank_h", _blur_stack(h, sigmas, dtype, device))
-            self.register_buffer("bank_w", _blur_stack(w, sigmas, dtype, device))
+            self._hold_row_bank("bank_h", _blur_stack(h, sigmas, dtype, device))
+            self._hold("bank_w", _blur_stack(w, sigmas, dtype, device))
 
     @property
     def form(self) -> str:
@@ -378,8 +436,9 @@ class BlurBank(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.banded:
-            return _blur_banded(x, self.rows, self.cols, self.r, self.bw, self.precision)
-        out = blur_bank(x, self.bank_h, self.bank_w, self.precision)
+            return _blur_banded(x, self._held("rows"), self._held("cols"), self.r, self.bw,
+                                self.precision)
+        out = _blur_dense(x, self._row_bank("bank_h"), self._held("bank_w"), self.precision)
         return torch.cat([x[..., None, :, :], out], dim=-3) if self.with_input else out
 
 
@@ -421,7 +480,7 @@ def _sift_tail_mats_np(n: int, rel: tuple, sig_s: float, n_tail: int) -> np.ndar
     return out
 
 
-class TailBank(nn.Module):
+class TailBank(_BlurMatrices):
     """The last ``n_tail`` octaves of the SIFT pyramid from the first one's
     (h, w) base: every plane ``A_h[p]^T x A_w[p]`` with the operator stacks of
     :func:`_sift_tail_mats_np` held as buffers, two batched products for all
@@ -431,12 +490,11 @@ class TailBank(nn.Module):
 
     def __init__(self, h: int, w: int, rel, sig_s: float, n_tail: int,
                  dtype=torch.float32, device=None, precision: str = "highest"):
-        super().__init__()
+        super().__init__(precision)
         ah = _sift_tail_mats_np(h, tuple(rel), sig_s, n_tail)
         aw = ah if w == h else _sift_tail_mats_np(w, tuple(rel), sig_s, n_tail)
-        self.register_buffer("ah", torch.from_numpy(ah).to(device=device, dtype=dtype))
-        self.register_buffer("aw", torch.from_numpy(aw).to(device=device, dtype=dtype))
-        self.precision = precision
+        self._hold_row_bank("ah", torch.from_numpy(ah).to(device=device, dtype=dtype))
+        self._hold("aw", torch.from_numpy(aw).to(device=device, dtype=dtype))
         self.n_scales = len(rel) + 1
         self.shapes = []
         for _ in range(n_tail):
@@ -444,7 +502,7 @@ class TailBank(nn.Module):
             h, w = -(-h // 2), -(-w // 2)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        out = blur_bank(x, self.ah, self.aw, self.precision)
+        out = _blur_dense(x, self._row_bank("ah"), self._held("aw"), self.precision)
         n = self.n_scales
         return [out[..., o * n:(o + 1) * n, :h, :w] for o, (h, w) in enumerate(self.shapes)]
 

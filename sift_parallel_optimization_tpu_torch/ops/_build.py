@@ -112,10 +112,18 @@ def load_kernels() -> ctypes.CDLL:
         lib.sift_score_block_top2.argtypes = [p, p, i, i, i, ll, ll, ll, f, f, f, i, p, p, p, p]
         lib.sift_gather_resample.restype = i
         lib.sift_gather_resample.argtypes = [p, i, i, p, p, p, i, i, p, p, p]
-        lib.sift_bf16x3_bmm.restype = i
-        lib.sift_bf16x3_bmm.argtypes = [p, p, p, i, i, i, i, i, *[ll] * 11, p]
+        bind_bf16x3(lib)
         _lib = lib
         return _lib
+
+
+def bind_bf16x3(lib: ctypes.CDLL) -> None:
+    """The C signatures of kernel 5's entry points (``csrc/bf16x3_mm.cu``)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.sift_bf16x3_bmm.restype = i
+    lib.sift_bf16x3_bmm.argtypes = [p, p, p, p, p, i, i, i, i, i, *[ll] * 11, p]
+    lib.sift_bf16x3_bmm_attributes.restype = i
+    lib.sift_bf16x3_bmm_attributes.argtypes = [i, i, i, p]
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -46,6 +46,7 @@ from sift_parallel_optimization_tpu_torch.core.pyramid_ref import (
     BlurBank,
     _blur_stack,
     blur_product,
+    hold,
     _octave_scale_sigmas,
     _taps_np,
     check_fp32_matmul,
@@ -225,32 +226,37 @@ def _band_matrices(h: int, sigmas) -> tuple[np.ndarray, int]:
 
 
 class _ShardedBank:
-    """One row-sharded blur-bank call: the band slices and the column bank,
-    every product in ``precision``."""
+    """One row-sharded blur-bank call: the band's three column slices (the
+    local rows', the rows from above, the rows from below) and the column
+    bank, every product in ``precision``: views of the f32 matrices at
+    "highest", split once into pairs at "high" (``core.pyramid_ref.hold``)."""
 
     def __init__(self, h: int, width: int, sigmas, dtype, device, precision: str = "highest"):
         L, self.r = _band_matrices(h, sigmas)
-        self.band = torch.from_numpy(L).to(device=device, dtype=dtype)
-        self.bank_w = _blur_stack(width, sigmas, dtype, device)
+        band = torch.from_numpy(L).to(device=device, dtype=dtype)
+        r = self.r
+        self.band_mid, self.band_up, self.band_down = (
+            hold(band[:, :, cols], precision)
+            for cols in (slice(r, r + h), slice(None, r), slice(r + h, None)))
+        self.bank_w = hold(_blur_stack(width, sigmas, dtype, device), precision)
         self.h = h
         self.precision = precision
 
-    def _rows(self, band: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    def _rows(self, band, rows: torch.Tensor) -> torch.Tensor:
         """band @ (rows @ bank_w): the column pass of ``rows``, then the
         row pass of one slice of the band."""
         p = self.precision
         return blur_product(band, blur_product(rows, self.bank_w, p), p)
 
     def __call__(self, x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-        r, h, band = self.r, self.h, self.band
-        exchange = start_neighbor_rows(x, r, mesh, axis)
+        exchange = start_neighbor_rows(x, self.r, mesh, axis)
         # The halo-independent bulk runs while the strips travel; the band
         # is zero outside [a, a + 2r], so the two boundary terms add exact
         # zeros to the interior rows.
-        out = self._rows(band[:, :, r:r + h], x)
+        out = self._rows(self.band_mid, x)
         from_up, from_down = exchange.wait()
-        out = out + self._rows(band[:, :, :r], from_up)
-        return out + self._rows(band[:, :, r + h:], from_down)
+        out = out + self._rows(self.band_up, from_up)
+        return out + self._rows(self.band_down, from_down)
 
 
 def sharded_blur_bank(mesh, height: int, width: int, sigmas, axis: str = "spatial",

@@ -49,6 +49,7 @@ from sift_parallel_optimization_tpu_torch.config import PyramidConfig, ScaleSpac
 from sift_parallel_optimization_tpu_torch.core import pyramid_ref as tpr
 from sift_parallel_optimization_tpu_torch.models import frontend as tfe
 from sift_parallel_optimization_tpu_torch.ops import blur_product as bp
+from sift_parallel_optimization_tpu_torch.parallel import scale_space as tss
 from sift_parallel_optimization_tpu_torch.utils import native as tnative
 
 HIGH_ATOL = 3e-5
@@ -106,6 +107,114 @@ def test_plain_product_within_bound_of_float64(kind):
     if kind == "column windows into out":
         base = out.as_strided((48, 320), (320, 1))
         assert bool((base[:, 9 * 32:] == 0).all())    # columns no window writes
+
+
+@pytest.mark.parametrize("side", ["a", "b", "ab"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_product_of_split_pairs_is_bitwise_the_f32_ones(kind, side):
+    """A constant split once (a SplitPair) gives the plain version the same
+    parts in the same layout as the f32 operand it was split from."""
+    a, b, out = _operands(kind, np.random.default_rng(len(kind)))
+    want = bp.bf16x3_bmm_plain(a, b)
+    split = {s: bp.split_pair(x) if s in side else x for s, x in (("a", a), ("b", b))}
+    got = bp.bf16x3_bmm(split["a"], split["b"], out=out)
+    assert torch.equal(got, want)
+    for name, x in split.items():
+        if isinstance(x, bp.SplitPair):
+            assert x.parts.dtype == torch.bfloat16 and x.parts.is_contiguous()
+            assert x.parts.shape[-1] % 8 == 0 and x.shape == (a if name == "a" else b).shape
+            assert bool((x.parts[..., x.cols:] == 0).all())         # the rows' zero pad
+
+
+def test_split_pair_indexes_and_repeats_like_its_matrix():
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(3, 5, 13)).astype(np.float32))
+    pair = bp.split_pair(x)
+    for got, want in ((pair[1:], x[1:]), (pair.repeat(2, 1, 1)[:4], x.repeat(2, 1, 1)[:4])):
+        assert got.shape == want.shape and torch.equal(got.dense(), bp.split_pair(want).dense())
+    with pytest.raises(ValueError, match="batch dimensions"):
+        pair.repeat(1, 2, 1)
+
+
+SIGMAS = [1.2, 2.0, 3.1]
+
+
+def _module_and_paths(form):
+    """(a module at "high" holding its constant matrices split once, its
+    input shape, its forward, the f32-operand product path it replaced)."""
+    if form in ("banded", "dense"):
+        h, w = (24, 512) if form == "banded" else (40, 36)
+        bank = tpr.BlurBank(h, w, SIGMAS, True, precision="high")
+        assert bank.form == form
+        if form == "banded":
+            rows, cols, r, bw = tpr._band_operands(h, w, SIGMAS, with_input=True)
+            return bank, (h, w), bank, lambda x: tpr._blur_banded(
+                x, torch.from_numpy(rows), torch.from_numpy(cols), r, bw, "high")
+        f32 = [tpr._blur_stack(n, SIGMAS, torch.float32, "cpu") for n in (h, w)]
+        return bank, (h, w), bank, lambda x: torch.cat(
+            [x[..., None, :, :], tpr.blur_bank(x, *f32, "high")], dim=-3)
+    if form == "tail":
+        rel, n_tail = (1.1, 1.6, 2.3), 3
+        bank = tpr.TailBank(24, 20, rel, rel[1], n_tail, precision="high")
+        ah, aw = (torch.from_numpy(tpr._sift_tail_mats_np(n, rel, rel[1], n_tail))
+                  for n in (24, 20))
+        n = bank.n_scales
+
+        def tail(x):
+            out = tpr.blur_bank(x, ah, aw, "high")
+            return [out[..., o * n:(o + 1) * n, :hh, :ww]
+                    for o, (hh, ww) in enumerate(bank.shapes)]
+
+        return bank, (24, 20), bank, tail
+    # The row-sharded bank's three products (the local rows, the halo from
+    # above, from below) on one frame's rows; "highest" holds the f32 slices.
+    bank, f32 = (tss._ShardedBank(16, 24, SIGMAS, torch.float32, "cpu", precision=p)
+                 for p in ("high", "highest"))
+
+    def high(x):
+        return [bank._rows(m, x[0, :m.shape[-1]])
+                for m in (bank.band_mid, bank.band_up, bank.band_down)]
+
+    def f32_path(x):
+        return [tpr.blur_product(m, tpr.blur_product(x[0, :m.shape[-1]], f32.bank_w, "high"),
+                                 "high") for m in (f32.band_mid, f32.band_up, f32.band_down)]
+
+    return bank, (16, 24), high, f32_path
+
+
+FORMS = ["banded", "dense", "tail", "sharded"]
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_high_modules_hold_split_pairs_only(form):
+    bank = _module_and_paths(form)[0]
+    if form == "sharded":
+        held = [bank.band_mid, bank.band_up, bank.band_down, bank.bank_w]
+        assert all(isinstance(m, bp.SplitPair) and m.parts.dtype == torch.bfloat16
+                   for m in held)
+        return
+    buffers = dict(bank.named_buffers())
+    assert all(b.dtype == torch.bfloat16 and b.shape[0] == 2 for b in buffers.values())
+    names = {"banded": {"rows", "cols"}, "dense": {"bank_h_t", "bank_w"},
+             "tail": {"ah_t", "aw"}}[form]
+    assert set(buffers) == names
+    # "highest" holds the same matrices in f32, the row bank untransposed.
+    f32 = {"banded": lambda: tpr.BlurBank(24, 512, SIGMAS, True),
+           "dense": lambda: tpr.BlurBank(40, 36, SIGMAS, True),
+           "tail": lambda: tpr.TailBank(24, 20, (1.1, 1.6), 1.6, 2)}[form]()
+    assert all(b.dtype == torch.float32 for b in f32.buffers())
+    assert set(dict(f32.named_buffers())) == {n.removesuffix("_t") for n in names}
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_high_modules_are_bitwise_their_f32_operand_paths(form):
+    """Two frames a call (the banded row pass repeats its split blocks)."""
+    _bank, (h, w), high, f32_path = _module_and_paths(form)
+    x = torch.from_numpy(np.random.default_rng(4).random((2, h, w), dtype=np.float32))
+    got, want = high(x), f32_path(x)
+    got, want = (g if isinstance(g, list) else [g] for g in (got, want))
+    assert len(got) == len(want)
+    for g, wt in zip(got, want):
+        assert torch.equal(g, wt)
 
 
 def test_split_and_kernel_wrapper_contract():

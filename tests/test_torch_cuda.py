@@ -261,12 +261,16 @@ def _kernel5_operands(kind, dev):
         return f(3, 1, 100, 120), f(5, 120, 120), None
     if kind == "subsample and transposed bank":
         return f(5, 128, 128).transpose(-1, -2), f(2, 256, 256)[:, None, ::2, ::2], None
+    if kind == "stride-2 base and bank":
+        # A dense octave's column pass: the base a stride-2 view of frames
+        # whose rows end on the last element's odd neighbour, K ragged.
+        return f(2, 1, 154, 186)[..., ::2, ::2], f(5, 93, 60), None
     raise ValueError(kind)
 
 
 @pytest.mark.parametrize("kind", ["ragged", "several tiles", "k=1", "overlapping windows",
                                   "column windows into out", "broadcast frames",
-                                  "subsample and transposed bank"])
+                                  "subsample and transposed bank", "stride-2 base and bank"])
 def test_bf16x3_kernel_matches_plain(dev, kind):
     a, b, out = _kernel5_operands(kind, dev)
     before = bp.LAUNCHES
@@ -285,6 +289,65 @@ def test_bf16x3_kernel_matches_plain(dev, kind):
         assert bool((base[:, 53 * 64:] == 0).all())       # columns no window writes
 
 
+# The constant blur matrix of each operand kind (the side the pyramid's
+# modules hold split once): the row pass's blocks and banks are A, the
+# column pass's blocks and banks B.
+CONSTANT_SIDE = {"ragged": "b", "several tiles": "a", "k=1": "b", "overlapping windows": "a",
+                 "column windows into out": "b", "broadcast frames": "b",
+                 "subsample and transposed bank": "a", "stride-2 base and bank": "b"}
+
+
+def _dense(x):
+    return x.dense() if isinstance(x, bp.SplitPair) else x
+
+
+def _check_split_launch(a, b, out, side):
+    """Kernel 5 with ``side`` ("a", "b" or "ab") handed over split once:
+    bitwise the kernel on the f32 operands (the same split, the same MMAs),
+    within kernel5_tol of the plain version on the pairs, and not the fp32
+    product."""
+    split = {s: bp.split_pair(x) if s in side else x for s, x in (("a", a), ("b", b))}
+    before = bp.LAUNCHES
+    got = bp.bf16x3_bmm_cuda(split["a"], split["b"], out=out)
+    f32 = bp.bf16x3_bmm_cuda(a, b)
+    want = bp.bf16x3_bmm_plain(split["a"], split["b"])
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES == before + 2 and got.shape == want.shape
+    assert torch.equal(got, f32)
+    tol = kernel5_tol(_dense(split["a"]), _dense(split["b"]))
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+    with fp32_matmul():
+        exact = a.double() @ b.double()
+        assert float((got.double() - exact).abs().max()) > 4 * float(
+            ((a @ b).double() - exact).abs().max())
+
+
+@pytest.mark.parametrize("kind", list(CONSTANT_SIDE))
+def test_bf16x3_kernel_with_the_constant_split_once(dev, kind):
+    a, b, out = _kernel5_operands(kind, dev)
+    _check_split_launch(a, b, out, CONSTANT_SIDE[kind])
+
+
+@pytest.mark.parametrize("side", ["a", "b", "ab"])
+@pytest.mark.parametrize("k", [1, 15, 17, 94, 95, 96, 257])
+def test_bf16x3_kernel_ragged_depths(dev, k, side):
+    """Depths around the 32-deep tile and the 16-byte chunks, M and N not
+    multiples of the 64 x 64 tile, a split side's rows padded."""
+    g = torch.Generator().manual_seed(k)
+    a = torch.randn(2, 77, k, generator=g).to(dev)
+    b = torch.randn(2, k, 93, generator=g).to(dev)
+    _check_split_launch(a, b, None, side)
+
+
+def test_bf16x3_kernel_attributes(dev):
+    """The pyramid's instances fit 128 registers without spilling; the row
+    and column passes' four CTAs an SM, the stride-2 bases' three."""
+    for kinds in bp.PYRAMID_INSTANCES:
+        got = bp.kernel_attributes(*kinds)
+        assert got["registers"] <= 128 and got["local_bytes"] == 0, (kinds, got)
+        assert got["ctas_per_sm"] >= (3 if kinds[2] else 4), (kinds, got)
+
+
 @pytest.mark.parametrize("size", [512, 256])
 def test_sift_pyramid_high_on_the_card_matches_cpu(dev, size):
     """512^2: banded base and octave 0, dense 256^2 and 128^2, the tail: two
@@ -301,6 +364,28 @@ def test_sift_pyramid_high_on_the_card_matches_cpu(dev, size):
     for o, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0, atol=HIGH_ATOL,
                                    err_msg=f"octave {o}")
+
+
+def test_sift_pyramid_high_captures_in_a_cuda_graph(dev):
+    """`cli bench` chains the "high" pyramid as CUDA graphs: every kernel 5
+    instance it launches (the stride-2 bases' with more than 48 KB of shared
+    memory among them) captures, and a replay equals the eager call."""
+    cfg = sift_config(512, blur_precision="high")
+    pyr = pyramid_ref.SiftPyramid(cfg, 512, device=dev)
+    img = torch.from_numpy(native.synth_frame(512, 0, seed=0)).to(dev)
+    want = [o.clone() for o in pyr(img)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pyr(img)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = pyr(img)
+    g.replay()
+    torch.cuda.synchronize()
+    for o, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), o
 
 
 def test_profile_device_counts_every_timed_launch(dev):
