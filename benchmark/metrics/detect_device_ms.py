@@ -1,0 +1,9 @@
+"""``detect_device_ms.<split>``: device milliseconds a frame of the
+operations the program launches inside its ``sift.detect`` span. Device
+trace."""
+
+from benchmark.metrics._stage import device_ms
+
+
+def read(run):
+    return device_ms(run, "sift.detect")

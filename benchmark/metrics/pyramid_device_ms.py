@@ -1,0 +1,9 @@
+"""``pyramid_device_ms.<split>``: device milliseconds a frame of the
+operations the program launches inside its ``sift.pyramid`` span. Device
+trace."""
+
+from benchmark.metrics._stage import device_ms
+
+
+def read(run):
+    return device_ms(run, "sift.pyramid")
