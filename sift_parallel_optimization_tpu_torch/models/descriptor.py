@@ -30,6 +30,7 @@ from sift_parallel_optimization_tpu_torch.ops.patch_gather import (
     extract_atlas_patches,
     extract_atlas_patches_batched,
 )
+from sift_parallel_optimization_tpu_torch.utils.profiling import span
 
 N_ORI_BINS = 36
 ORI_SIGMA_FACTOR = 1.5     # orientation window sigma = 1.5 * keypoint sigma
@@ -350,26 +351,34 @@ def orient_and_describe(
     valid only where a qualifying second peak exists. (B, S+3, H_o, W_o)
     octaves with (B, K) keypoints give (B, K or 2K) keypoints and (B, K or
     2K, 128) descriptors.
+
+    Every device operation runs in one of the sub-spans
+    ``sift.describe.sample`` (atlas, patches, resample),
+    ``sift.describe.orient`` and ``sift.describe.histogram`` (descriptors,
+    normalisation, the assembly of both orientations).
     """
     lead = tuple(kp.x.shape[:-1])
-    s_o, s_d, off_o, off_d, sig_o = _sample_grids(gauss_octaves, kp, max_radius=max_radius)
-    kp = Keypoints(*[f.reshape(-1) for f in kp])       # fold frames into keypoints
-    theta1, theta2, second_ok = _orientation_from_samples(s_o, off_o, sig_o, kp)
-    zero = torch.zeros_like(theta1)
-    kp1 = kp._replace(orientation=torch.where(kp.valid, theta1, zero))
-    desc1 = _normalize_desc(
-        _descriptors_from_samples(s_d, off_d, sig_o, kp1.orientation, kp1), kp1.valid
-    )
-    unfold = lambda t: t.reshape(*lead, -1, *t.shape[1:])
-    if not dual_orientation:
-        return Keypoints(*map(unfold, kp1)), unfold(desc1)
-    valid2 = kp.valid & second_ok
-    kp2 = kp._replace(orientation=torch.where(valid2, theta2, zero), valid=valid2)
-    desc2 = _normalize_desc(
-        _descriptors_from_samples(s_d, off_d, sig_o, kp2.orientation, kp2), valid2
-    )
-    both = Keypoints(*[torch.cat([unfold(a), unfold(b)], dim=-1) for a, b in zip(kp1, kp2)])
-    return both, torch.cat([unfold(desc1), unfold(desc2)], dim=-2)
+    with span("sift.describe.sample"):
+        s_o, s_d, off_o, off_d, sig_o = _sample_grids(gauss_octaves, kp, max_radius=max_radius)
+    with span("sift.describe.orient"):
+        kp = Keypoints(*[f.reshape(-1) for f in kp])       # fold frames into keypoints
+        theta1, theta2, second_ok = _orientation_from_samples(s_o, off_o, sig_o, kp)
+        zero = torch.zeros_like(theta1)
+        kp1 = kp._replace(orientation=torch.where(kp.valid, theta1, zero))
+    with span("sift.describe.histogram"):
+        desc1 = _normalize_desc(
+            _descriptors_from_samples(s_d, off_d, sig_o, kp1.orientation, kp1), kp1.valid
+        )
+        unfold = lambda t: t.reshape(*lead, -1, *t.shape[1:])
+        if not dual_orientation:
+            return Keypoints(*map(unfold, kp1)), unfold(desc1)
+        valid2 = kp.valid & second_ok
+        kp2 = kp._replace(orientation=torch.where(valid2, theta2, zero), valid=valid2)
+        desc2 = _normalize_desc(
+            _descriptors_from_samples(s_d, off_d, sig_o, kp2.orientation, kp2), valid2
+        )
+        both = Keypoints(*[torch.cat([unfold(a), unfold(b)], dim=-1) for a, b in zip(kp1, kp2)])
+        return both, torch.cat([unfold(desc1), unfold(desc2)], dim=-2)
 
 
 def assign_orientations(gauss_octaves: list[torch.Tensor], kp: Keypoints) -> Keypoints:

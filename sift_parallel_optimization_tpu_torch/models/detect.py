@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from sift_parallel_optimization_tpu_torch.config import PyramidConfig
 from sift_parallel_optimization_tpu_torch.models.keypoints import Keypoints, stable_top_k
 from sift_parallel_optimization_tpu_torch.ops import score_tables
+from sift_parallel_optimization_tpu_torch.utils.profiling import span
 
 CONTRAST_THRESHOLD = 0.04
 EDGE_RATIO = 10.0
@@ -395,6 +396,10 @@ def detect_octave_groups_batched(
     ``adaptive_hop`` adds one more hop-and-refit round for candidates whose
     last fit still escapes the trust region; converged candidates keep their
     values (computed for all, then selected: no host sync).
+
+    Its three parts run in the sub-spans ``sift.detect.score`` (canvases,
+    dense scores, kernel 3), ``sift.detect.select`` (selection, padding, the
+    winners' decode) and ``sift.detect.refit`` (``utils/profiling.span``).
     """
     if not groups or not all(groups):
         raise ValueError("expected at least one non-empty group of (octave_id, dog)")
@@ -409,118 +414,126 @@ def detect_octave_groups_batched(
                            for grp in groups), device)
     k = min(capacity, st["n_total"])
     thr = contrast_threshold / cfg.S
-    native = [grp[0][1].to(torch.float32).reshape(b, -1) for grp in groups if len(grp) == 1]
-    flat_native = (native[0] if len(native) == 1 else torch.cat(native, dim=1)) if native else None
-    pieces, scores, canvas = [], [], []
-    for grp, g in zip(groups, st["groups"]):
-        if g["native"] is not None:
-            pieces.append(native[g["native"]])
-            if not use_approx_topk:
-                scores.append(dense_score(grp[0][1], thr, edge_ratio, refine_iters).reshape(b, -1))
-            continue
-        score, key, stack = _canvas_scores([d for _o, d in grp], g, thr, edge_ratio,
-                                           refine_iters, use_approx_topk)
-        pieces.append(stack)
+    with span("sift.detect.score"):
+        native = [grp[0][1].to(torch.float32).reshape(b, -1) for grp in groups if len(grp) == 1]
+        flat_native = ((native[0] if len(native) == 1 else torch.cat(native, dim=1)) if native
+                       else None)
+        pieces, scores, canvas = [], [], []
+        for grp, g in zip(groups, st["groups"]):
+            if g["native"] is not None:
+                pieces.append(native[g["native"]])
+                if not use_approx_topk:
+                    scores.append(dense_score(grp[0][1], thr, edge_ratio,
+                                              refine_iters).reshape(b, -1))
+                continue
+            score, key, stack = _canvas_scores([d for _o, d in grp], g, thr, edge_ratio,
+                                               refine_iters, use_approx_topk)
+            pieces.append(stack)
+            if use_approx_topk:
+                canvas.append(_canvas_entries(score, key, g, k))
+            else:
+                scores.append(score)
+        # (B, L): each frame's groups back to back, frame-major.
+        flat_dog = flat_native if len(pieces) == len(native) else torch.cat(pieces, dim=1)
+        tables = None
+        if use_approx_topk and flat_native is not None:
+            tables = score_tables.score_block_top2(flat_native, st["natives"], thr, edge_ratio,
+                                                   refine_iters)
+    with span("sift.detect.select"):
         if use_approx_topk:
-            canvas.append(_canvas_entries(score, key, g, k))
+            vals, idx = _select_block_reduce(tables, canvas, st, k, b)
         else:
-            scores.append(score)
-    # (B, L): each frame's groups back to back, frame-major.
-    flat_dog = flat_native if len(pieces) == len(native) else torch.cat(pieces, dim=1)
-    if use_approx_topk:
-        tables = None if flat_native is None else score_tables.score_block_top2(
-            flat_native, st["natives"], thr, edge_ratio, refine_iters)
-        vals, idx = _select_block_reduce(tables, canvas, st, k, b)
-    else:
-        vals, idx = stable_top_k(scores[0] if len(scores) == 1 else torch.cat(scores, dim=1), k)
-    if k < capacity:  # tiny pyramid: pad up to capacity
-        pad = capacity - k
-        vals = torch.cat([vals, vals.new_zeros((b, pad))], dim=-1)
-        idx = torch.cat([idx, idx.new_zeros((b, pad))], dim=-1)
-    if use_approx_topk:
-        # One decode of the winners: hop code from the low 5 bits, the f32
-        # score from the rest (packed 0 -> 0.0, so invalid slots stay so).
+            vals, idx = stable_top_k(scores[0] if len(scores) == 1 else torch.cat(scores, dim=1),
+                                     k)
+        if k < capacity:  # tiny pyramid: pad up to capacity
+            pad = capacity - k
+            vals = torch.cat([vals, vals.new_zeros((b, pad))], dim=-1)
+            idx = torch.cat([idx, idx.new_zeros((b, pad))], dim=-1)
+        if use_approx_topk:
+            # One decode of the winners: hop code from the low 5 bits, the f32
+            # score from the rest (packed 0 -> 0.0, so invalid slots stay so).
+            if use_hops:
+                hops = (vals & 31).to(torch.int64)
+                vals = vals & ~31
+            vals = vals.view(torch.float32)
+
+    with span("sift.detect.refit"):
+        # Each slot's member (bases ascend in group order) and its metadata in
+        # one gather of the packed table.
+        j = (idx[..., None] >= st["bases"]).sum(-1) - 1
+        col = st["tab"][j].unbind(-1)
+        wp_c, sp_c, lim_s, lim_y, lim_x = col[_WP], col[_SP], col[_LS], col[_LY], col[_LX]
+        rem = idx - col[_BASE]
+        s_i = rem // col[_HW]
+        y_i = (rem // col[_WS]) % col[_HS]
+        x_i = rem % col[_WS]
+        deltas = st["deltas"][j]                                # (B, K, 19)
+        corner0 = col[_GSTART]
+
+        def fit_at(ps, py, px):
+            corner = corner0 + ps * sp_c + py * wp_c + px
+            pos = (corner[..., None] + deltas).reshape(b, -1)
+            return _cube_fit(torch.gather(flat_dog, 1, pos).view(b, -1, len(_FIT_OFFSETS)),
+                             edge_ratio)
+
+        def hop(p, o, lim, conv):
+            step = torch.round(o).clamp(-1, 1).to(torch.int64)
+            return torch.where(conv, p, torch.minimum(torch.clamp(p + step, min=0), lim))
+
+        m = MAX_REFINE_OFFSET
         if use_hops:
-            hops = (vals & 31).to(torch.int64)
-            vals = vals & ~31
-        vals = vals.view(torch.float32)
+            # The first hop was decided densely and rides the tables: start
+            # there (code 13 = no hop decodes to steps (0, 0, 0)).
+            ps = torch.minimum(torch.clamp(s_i + (hops // 9 - 1), min=0), lim_s)
+            py = torch.minimum(torch.clamp(y_i + ((hops // 3) % 3 - 1), min=0), lim_y)
+            px = torch.minimum(torch.clamp(x_i + (hops % 3 - 1), min=0), lim_x)
+            rounds_left = refine_iters - 1
+        else:
+            ps, py, px = s_i, y_i, x_i
+            rounds_left = refine_iters
+        os_, oy, ox, dh, eok = fit_at(ps, py, px)
+        if refine_iters:
+            for _ in range(rounds_left):
+                conv = (os_.abs() <= m) & (oy.abs() <= m) & (ox.abs() <= m)
+                ps = hop(ps, os_, lim_s, conv)
+                py = hop(py, oy, lim_y, conv)
+                px = hop(px, ox, lim_x, conv)
+                os_, oy, ox, dh, eok = fit_at(ps, py, px)
+            if adaptive_hop:
+                # Zero-score slots count as converged.
+                conv = ((os_.abs() <= m) & (oy.abs() <= m) & (ox.abs() <= m)) | (vals <= 0)
+                ps2 = hop(ps, os_, lim_s, conv)
+                py2 = hop(py, oy, lim_y, conv)
+                px2 = hop(px, ox, lim_x, conv)
+                new = fit_at(ps2, py2, px2)
+                ps, py, px = (torch.where(conv, a, b) for a, b in ((ps, ps2), (py, py2), (px, px2)))
+                os_, oy, ox, dh, eok = (
+                    torch.where(conv, a, b) for a, b in zip((os_, oy, ox, dh, eok), new)
+                )
+            s_i, y_i, x_i = ps, py, px
+            off_ok = (os_.abs() < m) & (oy.abs() < m) & (ox.abs() < m)
+            valid = (vals > 0) & off_ok & eok & (dh.abs() > thr)
+            vals = torch.where(valid, dh.abs(), torch.zeros_like(dh))
+        else:
+            valid = vals > 0
 
-    # Each slot's member (bases ascend in group order) and its metadata in
-    # one gather of the packed table.
-    j = (idx[..., None] >= st["bases"]).sum(-1) - 1
-    col = st["tab"][j].unbind(-1)
-    wp_c, sp_c, lim_s, lim_y, lim_x = col[_WP], col[_SP], col[_LS], col[_LY], col[_LX]
-    rem = idx - col[_BASE]
-    s_i = rem // col[_HW]
-    y_i = (rem // col[_WS]) % col[_HS]
-    x_i = rem % col[_WS]
-    deltas = st["deltas"][j]                                # (B, K, 19)
-    corner0 = col[_GSTART]
-
-    def fit_at(ps, py, px):
-        corner = corner0 + ps * sp_c + py * wp_c + px
-        pos = (corner[..., None] + deltas).reshape(b, -1)
-        return _cube_fit(torch.gather(flat_dog, 1, pos).view(b, -1, len(_FIT_OFFSETS)),
-                         edge_ratio)
-
-    def hop(p, o, lim, conv):
-        step = torch.round(o).clamp(-1, 1).to(torch.int64)
-        return torch.where(conv, p, torch.minimum(torch.clamp(p + step, min=0), lim))
-
-    m = MAX_REFINE_OFFSET
-    if use_hops:
-        # The first hop was decided densely and rides the tables: start
-        # there (code 13 = no hop decodes to steps (0, 0, 0)).
-        ps = torch.minimum(torch.clamp(s_i + (hops // 9 - 1), min=0), lim_s)
-        py = torch.minimum(torch.clamp(y_i + ((hops // 3) % 3 - 1), min=0), lim_y)
-        px = torch.minimum(torch.clamp(x_i + (hops % 3 - 1), min=0), lim_x)
-        rounds_left = refine_iters - 1
-    else:
-        ps, py, px = s_i, y_i, x_i
-        rounds_left = refine_iters
-    os_, oy, ox, dh, eok = fit_at(ps, py, px)
-    if refine_iters:
-        for _ in range(rounds_left):
-            conv = (os_.abs() <= m) & (oy.abs() <= m) & (ox.abs() <= m)
-            ps = hop(ps, os_, lim_s, conv)
-            py = hop(py, oy, lim_y, conv)
-            px = hop(px, ox, lim_x, conv)
-            os_, oy, ox, dh, eok = fit_at(ps, py, px)
-        if adaptive_hop:
-            # Zero-score slots count as converged.
-            conv = ((os_.abs() <= m) & (oy.abs() <= m) & (ox.abs() <= m)) | (vals <= 0)
-            ps2 = hop(ps, os_, lim_s, conv)
-            py2 = hop(py, oy, lim_y, conv)
-            px2 = hop(px, ox, lim_x, conv)
-            new = fit_at(ps2, py2, px2)
-            ps, py, px = (torch.where(conv, a, b) for a, b in ((ps, ps2), (py, py2), (px, px2)))
-            os_, oy, ox, dh, eok = (
-                torch.where(conv, a, b) for a, b in zip((os_, oy, ox, dh, eok), new)
-            )
-        s_i, y_i, x_i = ps, py, px
-        off_ok = (os_.abs() < m) & (oy.abs() < m) & (ox.abs() < m)
-        valid = (vals > 0) & off_ok & eok & (dh.abs() > thr)
-        vals = torch.where(valid, dh.abs(), torch.zeros_like(dh))
-    else:
-        valid = vals > 0
-
-    x_o = x_i.to(torch.float32) + 1.0 + ox
-    y_o = y_i.to(torch.float32) + 1.0 + oy
-    s_o = s_i.to(torch.float32) + 1.0 + os_     # DoG plane index (1..S)
-    oct_ids = col[_OCT].to(torch.int32)
-    scale_mult = torch.exp2(oct_ids.to(torch.float32))
-    sigma = cfg.sigma0 * torch.exp2(s_o / cfg.S) * scale_mult
-    zero = torch.zeros_like(vals)
-    return Keypoints(
-        x=torch.where(valid, x_o * scale_mult, zero),
-        y=torch.where(valid, y_o * scale_mult, zero),
-        sigma=torch.where(valid, sigma, zero),
-        score=vals,
-        orientation=zero,
-        octave=oct_ids,
-        scale=(s_i + 1).to(torch.int32),
-        valid=valid,
-    )
+        x_o = x_i.to(torch.float32) + 1.0 + ox
+        y_o = y_i.to(torch.float32) + 1.0 + oy
+        s_o = s_i.to(torch.float32) + 1.0 + os_     # DoG plane index (1..S)
+        oct_ids = col[_OCT].to(torch.int32)
+        scale_mult = torch.exp2(oct_ids.to(torch.float32))
+        sigma = cfg.sigma0 * torch.exp2(s_o / cfg.S) * scale_mult
+        zero = torch.zeros_like(vals)
+        return Keypoints(
+            x=torch.where(valid, x_o * scale_mult, zero),
+            y=torch.where(valid, y_o * scale_mult, zero),
+            sigma=torch.where(valid, sigma, zero),
+            score=vals,
+            orientation=zero,
+            octave=oct_ids,
+            scale=(s_i + 1).to(torch.int32),
+            valid=valid,
+        )
 
 
 def detect_octave_groups(groups: list[list[tuple[int, torch.Tensor]]], cfg: PyramidConfig,

@@ -15,7 +15,6 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from sift_parallel_optimization_tpu_torch.config import PyramidConfig, ScaleSpaceMode
 from sift_parallel_optimization_tpu_torch.core.pyramid_ref import SiftPyramid, dog_planes
@@ -33,6 +32,7 @@ from sift_parallel_optimization_tpu_torch.models.keypoints import (
 )
 from sift_parallel_optimization_tpu_torch.utils.convert import field, tensor_from_numpy
 from sift_parallel_optimization_tpu_torch.utils.device import resolve_device
+from sift_parallel_optimization_tpu_torch.utils.profiling import setup_span, span, stage_span
 
 
 class Features(NamedTuple):
@@ -86,41 +86,54 @@ class SiftFrontend(nn.Module):
         device=None,
         **thresholds,
     ):
-        super().__init__()
-        height = cfg.length if height is None else height
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self.max_keypoints = max_keypoints
-        self.dual_orientation = dual_orientation
-        self.thresholds = thresholds
-        self.pyramid = SiftPyramid(cfg, height, width, device=self.device)
+        with setup_span("sift.setup.frontend"):
+            super().__init__()
+            height = cfg.length if height is None else height
+            self.cfg = cfg
+            self.device = resolve_device(device)
+            self.max_keypoints = max_keypoints
+            self.dual_orientation = dual_orientation
+            self.thresholds = thresholds
+            self.pyramid = SiftPyramid(cfg, height, width, device=self.device)
+            self._first_forward = True
 
     @torch.no_grad()
     def forward(self, img: torch.Tensor) -> Features:
         """(H, W) grayscale image in [0, 1] on ``self.device`` -> Features;
         (B, H, W) frames -> Features with a leading (B,) axis."""
+        if self._first_forward:
+            # Kernel builds, lazy module loads and library handles land here.
+            self._first_forward = False
+            with setup_span("sift.setup.first_forward"):
+                return self._features(img)
+        return self._features(img)
+
+    def _features(self, img: torch.Tensor) -> Features:
         gauss = self.gaussian(img)
         return self.describe(gauss, self.detect(gauss))
 
-    # The three stages, each a torch.profiler range (free when no profiler
-    # runs); profile_frontend.py times them one by one.
+    # The three stages, each a stage span (utils/profiling: host start and
+    # end in the span ring; a torch.profiler range only while a profiler
+    # runs), detection's and description's parts sub-spans inside them;
+    # profile_frontend.py times the stages one by one.
 
     @torch.no_grad()
     def gaussian(self, img: torch.Tensor) -> list[torch.Tensor]:
-        with record_function("sift.pyramid"):
+        with stage_span("sift.pyramid"):
             return self.pyramid(img)
 
     @torch.no_grad()
     def detect(self, gauss: list[torch.Tensor]) -> Keypoints:
-        with record_function("sift.detect"):
-            dogs = [dog_planes(g) for g in gauss]
+        with stage_span("sift.detect"):
+            with span("sift.detect.dog"):
+                dogs = [dog_planes(g) for g in gauss]
             detect = detect_pyramid_batched if dogs[0].dim() == 4 else detect_pyramid
             return detect(dogs, self.cfg, max_keypoints=self.max_keypoints,
                           **self.thresholds)
 
     @torch.no_grad()
     def describe(self, gauss: list[torch.Tensor], kp: Keypoints) -> Features:
-        with record_function("sift.describe"):
+        with stage_span("sift.describe"):
             kp, desc = orient_and_describe(
                 gauss, kp, dual_orientation=self.dual_orientation,
                 max_radius=max_patch_radius(self.cfg.S, self.cfg.sigma0),

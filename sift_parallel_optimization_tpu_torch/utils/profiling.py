@@ -1,21 +1,21 @@
-"""Timing and structured metrics (port of ``utils/profiling.py``).
+"""Timing, spans and structured metrics (port of ``utils/profiling.py``).
 
 On the card only: CUDA events per call (:func:`cuda_time_ms`) and device
 kernel time from ``torch.profiler`` (:func:`profile_device`); both raise
 when there is no card, so a CPU time is never reported as a device time.
-On any device: the JAX package's wall-clock timers, :func:`steady_state_ms`
-(mean wall ms of a call, synchronized) and :func:`chained_slope_ms` (the
-slope between a short and a long chain of a step that feeds itself), a
-``torch.profiler`` trace context (:func:`profiler_trace`) and a JSONL
-metrics sink (:class:`MetricsWriter`). The wall-clock timers time what
-they run on: a CPU run times the CPU.
+On any device: the JAX package's wall-clock timer
+:func:`chained_slope_ms` (the slope between a short and a long chain of a
+step that feeds itself), the program's spans (:func:`span`,
+:func:`stage_span`, :func:`setup_span`; read back by :func:`host_spans`
+and :func:`setup_spans`) and a JSONL metrics sink (:class:`MetricsWriter`).
+The wall-clock timers time what they run on: a CPU run times the CPU.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
-import os
 import statistics
 import sys
 import time
@@ -178,29 +178,6 @@ def device_kernel_ms(fn: Callable[..., Any], *args, warmup: int = 3, iters: int 
     return profile_device(fn, *args, warmup=warmup, iters=iters)[1]
 
 
-def _synchronize() -> None:
-    """Wait for the card's queued work, where the card is in use (the
-    port's ``jax.block_until_ready``)."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-def steady_state_ms(fn: Callable[[], Any], min_seconds: float = 1.0, warmup: int = 2) -> float:
-    """Mean wall ms per call of ``fn()``, repeated until ``min_seconds`` have
-    passed, each call waited for (``torch.cuda.synchronize`` on the card):
-    the latency a caller sees, host included."""
-    for _ in range(warmup):
-        fn()
-    _synchronize()
-    t0 = time.perf_counter()
-    runs = 0
-    while time.perf_counter() - t0 < min_seconds:
-        fn()
-        _synchronize()
-        runs += 1
-    return (time.perf_counter() - t0) / runs * 1e3
-
-
 def chained_slope_ms(
     step: Callable[[torch.Tensor], torch.Tensor],
     example: torch.Tensor,
@@ -320,25 +297,75 @@ def slope_ms(
     return slopes[len(slopes) // 2], [lo, hi]
 
 
-@contextlib.contextmanager
-def profiler_trace(log_dir: str | None):
-    """``torch.profiler`` over the block (host, and the card where there is
-    one), written on exit as a Chrome/Perfetto trace into ``log_dir``; a
-    no-op when ``log_dir`` is None. Yields the trace's path (None without
-    ``log_dir``)."""
-    if log_dir is None:
-        yield None
-        return
-    from torch.profiler import ProfilerActivity, profile
+# With no profiler running, an entered ``record_function`` still costs ~10 us
+# of host time (torch 2.11, an H100 machine's host); the check in
+# :func:`span` ~0.7 us.
+_NO_SPAN = contextlib.nullcontext()
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    path = os.path.join(log_dir, f"{time.strftime('%Y%m%d-%H%M%S')}.{os.getpid()}.pt.trace.json")
-    with profile(activities=activities) as prof:
-        yield path
-    prof.export_chrome_trace(path)
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs (on the trace's clock, so device work launched inside it
+    is tied to it by correlation id), else a context that does nothing.
+    Never synchronizes and launches no device work."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+# The stage spans' host record, kept with or without a profiler: (name,
+# start, end) in ``time.perf_counter`` seconds, the newest
+# HOST_SPAN_CAPACITY of them (a 51-s stream of 8-frame 640x480 batches, ~76
+# a second, three stage spans each, makes ~12k).
+HOST_SPAN_CAPACITY = 2**15
+_HOST_SPANS: collections.deque = collections.deque(maxlen=HOST_SPAN_CAPACITY)
+# Set-up spans, once a frontend (its construction, its first forward), kept
+# apart so that no run of stages evicts them; the newest SETUP_SPAN_CAPACITY,
+# so that a caller building a frontend a call does not grow it without end.
+SETUP_SPAN_CAPACITY = 256
+_SETUP_SPANS: collections.deque = collections.deque(maxlen=SETUP_SPAN_CAPACITY)
+
+
+class _RecordedSpan:
+    """:func:`span` ``name``, its host start and end appended to ``sink``
+    when it closes (an exception included)."""
+
+    __slots__ = ("_name", "_sink", "_inner", "_start")
+
+    def __init__(self, name: str, sink: collections.deque):
+        self._name, self._sink = name, sink
+
+    def __enter__(self):
+        self._inner = span(self._name)
+        self._inner.__enter__()
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._sink.append((self._name, self._start, time.perf_counter()))
+        return self._inner.__exit__(*exc)
+
+
+def stage_span(name: str) -> _RecordedSpan:
+    """:func:`span` ``name``, also recorded in the host span ring."""
+    return _RecordedSpan(name, _HOST_SPANS)
+
+
+def setup_span(name: str) -> _RecordedSpan:
+    """:func:`span` ``name``, also recorded in the set-up record."""
+    return _RecordedSpan(name, _SETUP_SPANS)
+
+
+def host_spans() -> list[tuple[str, float, float]]:
+    """A copy of the host span ring, oldest first: (name, start, end),
+    ``time.perf_counter`` seconds."""
+    return list(_HOST_SPANS)
+
+
+def setup_spans() -> list[tuple[str, float, float]]:
+    """A copy of the set-up record, oldest first: (name, start, end),
+    ``time.perf_counter`` seconds."""
+    return list(_SETUP_SPANS)
 
 
 class MetricsWriter:

@@ -28,7 +28,7 @@ import collections
 import inspect
 import json
 import math
-import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -283,17 +283,28 @@ def test_replay_slope_restores_the_carry_and_the_draws():
     assert float(runner.carry[0].sum()) == 0.0 and torch.equal(runner.carry[1][0], torch.ones(2))
 
 
-def test_slope_ms_runs_before_every_timed_run():
+def test_slope_ms_runs_before_every_timed_run(monkeypatch):
     """``slope_ms``: ``before`` precedes every run (warm and timed), the
-    pilot stretches both lengths, and the slope is never below 0."""
-    from sift_parallel_optimization_tpu_torch.utils.profiling import slope_ms
+    pilot stretches both lengths, and the slope is never below 0. A fake
+    clock, advanced 0.1 ms a step by the runs, times them, so the host's
+    load cannot move what is asserted."""
+    from sift_parallel_optimization_tpu_torch.utils import profiling
 
+    now = [0.0]
+    monkeypatch.setattr(profiling, "time", types.SimpleNamespace(perf_counter=lambda: now[0]))
     log = []
     run_of = lambda n: (lambda: log.append(("run", n)))
-    ms, chain = slope_ms(run_of, 2, 4, repeats=2, before=lambda: log.append("before"))
-    assert ms >= 0 and chain == [2, 4]
+    ms, chain = profiling.slope_ms(run_of, 2, 4, repeats=2,
+                                   before=lambda: log.append("before"))
+    assert ms == 0 and chain == [2, 4]
     assert log[0::2] == ["before"] * (len(log) // 2)
     assert [e[1] for e in log[1::2]] == [2, 4, 4, 4, 2, 2]
-    _ms, chain = slope_ms(lambda n: (lambda: time.sleep(1e-4 * n)), 1, 2, repeats=1,
-                          min_hi_total_ms=5.0)
+
+    def steps(n):
+        def run():
+            now[0] += 1e-4 * n
+        return run
+
+    ms, chain = profiling.slope_ms(steps, 1, 2, repeats=1, min_hi_total_ms=5.0)
     assert chain[1] == 2 * chain[0] and chain[1] > 2
+    assert ms == pytest.approx(0.1)
