@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``sift_parallel_optimization_tpu_torch/
 csrc``, checks each against its plain PyTorch version on the card (kernels
 1 and 3 bit for bit, kernel 1 up to 4096^2, kernel 3 also on odd, wide,
 constant, two-level and NaN DoGs; kernel 5, the 3-pass bf16 blur product,
-at every launch of the 512^2 and 1024^2 pyramids at blur_precision="high"),
+at every launch of the 512^2 and 1024^2 pyramids at blur_precision="high"; kernel 6, the descriptor histograms, at the
+benchmark cells' slots),
 drives the entry points (the REFERENCE DoG pyramid at 512^2, S=2; the SIFT
 frontend at 512^2/K=512 and 1024^2/K=2048, S=3, on its default block-reduce
 detection branch; the frontend with fused descriptor sampling at
@@ -57,6 +58,7 @@ SRC_K2 = "sift_parallel_optimization_tpu_torch/csrc/patch_gather.cu"
 SRC_K3 = "sift_parallel_optimization_tpu_torch/csrc/score_tables.cu"
 SRC_K4 = "sift_parallel_optimization_tpu_torch/csrc/gather_resample.cu"
 SRC_K5 = "sift_parallel_optimization_tpu_torch/csrc/bf16x3_mm.cu"
+SRC_K6 = "sift_parallel_optimization_tpu_torch/csrc/descriptor_hist.cu"
 # file:line of the TPU kernels each CUDA kernel replaces.
 REPLACES_K1 = "sift_parallel_optimization_tpu/ops/scale_space_pallas.py:86"
 REPLACES_K2 = "sift_parallel_optimization_tpu/ops/patch_gather.py:66"
@@ -67,6 +69,9 @@ REPLACES_K4 = "sift_parallel_optimization_tpu/ops/descriptor_fused.py:138"
 # Precision.HIGH are XLA dots; this one is the banded row pass, the largest
 # product of the 512^2 and 1024^2 pyramids.
 REPLACES_K5 = "sift_parallel_optimization_tpu/core/pyramid_ref.py:389"
+# Kernel 6 replaces no Pallas kernel either: the JAX package's descriptor
+# histograms and normalisation are jnp, which XLA fuses.
+REPLACES_K6 = "sift_parallel_optimization_tpu/models/descriptor.py:406"
 
 # Kernel 1 vs its plain version: bitwise (the kernel's _rn arithmetic is the
 # plain version's, op for op), at the headline size, the largest size of the
@@ -91,6 +96,16 @@ RECALL_MIN = 0.95
 # Frames of the per-frame frontend paths; the batched path takes BATCH frames.
 FRAMES = 4
 BATCH = 8
+# Kernel 6 vs its plain version: the same f32 operations one by one, but the
+# sums over a bin's (up to 576, non-negative) votes and over a row's squares
+# run in another order, and two norms divide: a few 1e-6 an element at most.
+K6_ATOL = 1e-5
+# The benchmark cells' descriptor launches, (name, leading axes, K), both
+# orientations, on random slots (kernel6_synthetic): a forward of the KITTI-
+# or TUM-shaped frontend would launch kernels 2 and 3 at shapes no check
+# holds them at. The cells fill ~96% of their first slots.
+K6_CELLS = (("kitti_offline", (BATCH,), 2000), ("kitti_live", (), 2000),
+            ("tum_offline", (BATCH,), 1000), ("tum live", (), 1000))
 # Batched frontend vs the per-frame one on the card, frame by frame: the
 # batched matrix products may sum in another order, which can move a
 # coordinate by ~1e-5 px. Every slot must agree (valid, octave and scale
@@ -142,20 +157,20 @@ FUSED_CONFIG = (512, 3, 512)
 # The kernels each path of the main path must launch.
 PATH_KERNELS = {
     "headline": ("reference_dog_pyramid",),
-    512: ("patch_gather", "score_tables"),
-    1024: ("patch_gather", "score_tables"),
-    "fused": ("score_tables", "gather_resample"),
-    "batched 512": ("patch_gather_batched", "score_tables"),
-    "batched 1024": ("patch_gather_batched", "score_tables"),
-    "odometry": ("patch_gather_batched", "score_tables"),
-    **{f"stream {name}": ("patch_gather", "score_tables") for name in "abc"},
-    "bench": ("reference_dog_pyramid", "patch_gather", "score_tables"),
-    "mesh": ("patch_gather_batched", "score_tables"),
+    512: ("patch_gather", "score_tables", "descriptor_hist"),
+    1024: ("patch_gather", "score_tables", "descriptor_hist"),
+    "fused": ("score_tables", "gather_resample", "descriptor_hist"),
+    "batched 512": ("patch_gather_batched", "score_tables", "descriptor_hist"),
+    "batched 1024": ("patch_gather_batched", "score_tables", "descriptor_hist"),
+    "odometry": ("patch_gather_batched", "score_tables", "descriptor_hist"),
+    **{f"stream {name}": ("patch_gather", "score_tables", "descriptor_hist") for name in "abc"},
+    "bench": ("reference_dog_pyramid", "patch_gather", "score_tables", "descriptor_hist"),
+    "mesh": ("patch_gather_batched", "score_tables", "descriptor_hist"),
     "mesh dryrun": ("reference_dog_pyramid",),
     "groups": ("score_tables",),
-    "high 512": ("bf16x3_mm", "patch_gather", "score_tables"),
-    "high 1024": ("bf16x3_mm", "patch_gather", "score_tables"),
-    "high batched 512": ("bf16x3_mm", "patch_gather_batched", "score_tables"),
+    "high 512": ("bf16x3_mm", "patch_gather", "score_tables", "descriptor_hist"),
+    "high 1024": ("bf16x3_mm", "patch_gather", "score_tables", "descriptor_hist"),
+    "high batched 512": ("bf16x3_mm", "patch_gather_batched", "score_tables", "descriptor_hist"),
 }
 # Every kernel entry point as (module of sift_parallel_optimization_tpu_torch.
 # ops, wrapper, name in the launch counts) with the arguments that make up
@@ -181,6 +196,8 @@ SHAPED_WRAPPERS = (
      lambda a, b, out=None: (type(a).__name__, tuple(a.shape), a.stride(), type(b).__name__,
                              tuple(b.shape), b.stride(),
                              None if out is None else (tuple(out.shape), out.stride()))),
+    ("descriptor_hist", "descriptor_hist_cuda", "descriptor_hist",
+     lambda samples, offsets, sig_o, orientations: (tuple(samples.shape), len(orientations))),
 )
 LAUNCHED: dict = {}
 HELD: dict = {}
@@ -567,6 +584,43 @@ def kernel4_inputs(torch, rng, k, atlas, dev):
                        rng.uniform(2, 17, k), rng.uniform(4, 51, k)], 1).astype("float32")
     return (atlas, torch.from_numpy(grow).to(dev), torch.from_numpy(x0).to(dev),
             torch.from_numpy(params).to(dev))
+
+
+def kernel6_synthetic(torch, dev, samples_shape, n_ori, seed=0):
+    """Kernel 6's arguments for slots of ``samples_shape`` (..., K, 26, 26):
+    random grids, offsets of radius 10.6 sigma (the frontend's), sigma
+    0.8..5.8, random orientations, 96% of the slots valid, a third of
+    those with a second orientation."""
+    rng = np.random.default_rng(seed)
+    slots = samples_shape[:-2]
+    s = rng.random(samples_shape, dtype=np.float32)
+    sig = rng.uniform(0.8, 5.8, slots).astype(np.float32)
+    off = (np.linspace(-1, 1, 26, dtype=np.float32) * (10.6 * sig)[..., None]).astype(np.float32)
+    valid = [rng.random(slots) < 0.96]
+    valid.append(valid[0] & (rng.random(slots) < 0.35))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    oris = tuple((to(np.where(v, rng.uniform(-np.pi, np.pi, slots), 0).astype(np.float32)), to(v))
+                 for v in valid[:n_ori])
+    return to(s), to(off), to(sig), oris
+
+
+def kernel6_hold(torch, dh, args, name) -> float:
+    """Kernel 6 vs its plain version on ``args``: within K6_ATOL, zero rows
+    exactly at the invalid orientations, a repeat call bitwise equal.
+    Returns the largest difference."""
+    got = dh.descriptor_hist_cuda(*args)
+    want = dh.descriptor_hist_plain(*args)
+    again = dh.descriptor_hist_cuda(*args)
+    torch.cuda.synchronize()
+    err = max_err([got], [want])
+    check(got.shape == want.shape and err <= K6_ATOL,
+          f"kernel 6 disagrees with plain at {name}: {err:.3e} (atol {K6_ATOL})")
+    invalid = torch.cat([~v for _t, v in args[3]], dim=-1)
+    check(torch.equal((got == 0).all(-1), invalid),
+          f"kernel 6: the zero rows at {name} are not the invalid orientations")
+    check(same_bits(torch, got, again), f"kernel 6: a repeat call at {name} gave other bits")
+    held("descriptor_hist", *args)
+    return err
 
 
 def device_profile(torch, fn, *args, iters=10):
@@ -1618,8 +1672,9 @@ def stream_phase(torch, dev, counters):
         finally:
             tap.close()
         got = {k: c for k, c in launches[f"stream {name}"].items() if c}
-        check(got == {"patch_gather": STREAM_FRAMES + 1, "score_tables": STREAM_FRAMES + 1},
-              f"stream {name}: launched {got}, not kernels 2a and 3 once a frame for "
+        check(got == {"patch_gather": STREAM_FRAMES + 1, "score_tables": STREAM_FRAMES + 1,
+                      "descriptor_hist": STREAM_FRAMES + 1},
+              f"stream {name}: launched {got}, not kernels 2a, 3 and 6 once a frame for "
               f"{STREAM_FRAMES} frames and the warm-up")
         ms = res["seconds"] * 1e3 / STREAM_FRAMES
         times = tap.summary()
@@ -2067,9 +2122,9 @@ def high_phase(torch, dev, frames, feats, counters, peaks):
             imgs[size], sift_config(size, blur_precision="high"), k))
     got = {n: c for n, c in launches["high batched 512"].items() if c}
     check(got == {"bf16x3_mm": n_launch[size, BATCH], "patch_gather_batched": 1,
-                  "score_tables": 1},
+                  "score_tables": 1, "descriptor_hist": 1},
           f"high batched 512 launched {got}: kernel 5 {n_launch[size, BATCH]} times (twice a "
-          f"blur call) and kernels 2b and 3 once a batch expected")
+          f"blur call) and kernels 2b, 3 and 6 once a batch expected")
     check_features(torch, [frame_of(batched, i) for i in range(BATCH)], size, k)
 
     lines = []
@@ -2420,6 +2475,7 @@ def main() -> int:
         )
         from sift_parallel_optimization_tpu_torch.ops import _build
         from sift_parallel_optimization_tpu_torch.ops import blur_product as bp
+        from sift_parallel_optimization_tpu_torch.ops import descriptor_hist as dh
         from sift_parallel_optimization_tpu_torch.ops import gather_resample as gr
         from sift_parallel_optimization_tpu_torch.ops import patch_gather as pg
         from sift_parallel_optimization_tpu_torch.ops import scale_space as ss
@@ -2610,6 +2666,29 @@ def main() -> int:
               f"K={k} atlas {a}: device kernel {m:.4f} ms, plain {p:.4f} ms; per call kernel "
               f"{mc:.4f} ms, plain {pc:.4f} ms" for k, (m, p, mc, pc, a) in k4_ms.items()))
 
+    # 4d. Kernel 6 vs its plain version on the card at the benchmark cells'
+    # slots (one orientation too, at kitti_offline's); device ms of both
+    # beside the bound.
+    k6_ms, k6_err = {}, 0.0
+    for name, lead, k in K6_CELLS:
+        args = kernel6_synthetic(torch, dev, (*lead, k, 26, 26), 2)
+        cases = {name: args}
+        if name == "kitti_offline":
+            cases[f"{name}, one orientation"] = args[:3] + (args[3][:1],)
+        for case, a in cases.items():
+            k6_err = max(k6_err, kernel6_hold(torch, dh, a, case))
+            floor = R.descriptor_hist_model(a[2].numel(), len(a[3])).kernel_bound(peaks)
+            k6_ms[case] = (device_kernel_ms(dh.descriptor_hist_cuda, *a, iters=30),
+                           device_kernel_ms(dh.descriptor_hist_plain, *a, iters=5), floor,
+                           tuple(a[0].shape[:-2]), [float(v.float().mean()) for _t, v in a[3]])
+            check(floor[0] <= k6_ms[case][0],
+                  f"kernel 6 at {case}: {k6_ms[case][0]:.4f} ms is under its bound {floor[0]:.4f}")
+    phase("kernel6", f"descriptor_hist: max_abs_err={k6_err:.3e} (atol {K6_ATOL}), zero rows at "
+          f"the invalid orientations, repeat calls bitwise equal; " + "; ".join(
+              f"{case} slots {sl} x{len(vf)} ({'/'.join(f'{v:.1%}' for v in vf)} valid): device "
+              f"kernel {m:.4f} ms, bound {fl:.4f} ms ({by}), plain {p:.4f} ms"
+              for case, (m, p, (fl, by), sl, vf) in k6_ms.items()))
+
     # Inputs of the main path, on the card before the run.
     frames = {"headline": img512}
     for size, _S, _k in FRONTEND_CONFIGS:
@@ -2620,7 +2699,7 @@ def main() -> int:
     counters = {"reference_dog_pyramid": (ss, "LAUNCHES"), "patch_gather": (pg, "LAUNCHES"),
                 "patch_gather_batched": (pg, "LAUNCHES_BATCHED"),
                 "score_tables": (st, "LAUNCHES"), "gather_resample": (gr, "LAUNCHES"),
-                "bf16x3_mm": (bp, "LAUNCHES")}
+                "bf16x3_mm": (bp, "LAUNCHES"), "descriptor_hist": (dh, "LAUNCHES")}
     pyr, feats, path_launches = drive_main_path(torch, dev, frames, counters)
 
     # 5. Headline: the kernel path vs the plain version on CPU tensors.
@@ -2765,7 +2844,7 @@ def main() -> int:
                   f"{name} was not launched by the main path's {path} run")
         if str(path).startswith("batched") or path == "mesh":
             got = {n: c for n, c in path_launches[path].items() if c}
-            check(got == {"patch_gather_batched": 1, "score_tables": 1},
+            check(got == {"patch_gather_batched": 1, "score_tables": 1, "descriptor_hist": 1},
                   f"the {path} run launched {got}, not one launch of each kernel per batch")
         label = f"frontend {path}^2" if isinstance(path, int) else path
         phase("launches", f"{label}: " + ", ".join(
@@ -2773,7 +2852,12 @@ def main() -> int:
     launches = {name: sum(c[name] for c in path_launches.values()) for name in counters}
 
     # 9. Every shape a kernel launched at in this run was one a check held it
-    # to its plain version at.
+    # to its plain version at. Kernel 6 is held here at the shapes of the
+    # other paths (every slot count and batch they run), on random slots.
+    for samples_shape, n_ori in sorted(LAUNCHED.get("descriptor_hist", set())
+                                       - HELD.get("descriptor_hist", set())):
+        kernel6_hold(torch, dh, kernel6_synthetic(torch, dev, samples_shape, n_ori),
+                     f"slots {samples_shape[:-2]} x{n_ori}")
     for name in sorted(LAUNCHED):
         missing = LAUNCHED[name] - HELD.get(name, set())
         check(not missing, f"{name} launched at shapes no check held it at: {sorted(missing)}")
@@ -2818,6 +2902,7 @@ def main() -> int:
         "gather_resample K=512": resample_bound(512),
         "gather_resample K=2048": resample_bound(2048),
         f"bf16x3_mm {k5['shape'][0]}@{k5['shape'][1]}": k5["bound"],
+        **{f"descriptor_hist {case}": v[2] for case, v in k6_ms.items()},
     }
     phase("bounds", f"least ms at {peaks.hbm_gbps / 1e3:.2f} TB/s, "
           f"{peaks.elementwise_tflops:.0f} fp32 TFLOP/s and {peaks.matmul_bf16_tflops:.0f} "
@@ -2850,6 +2935,7 @@ def main() -> int:
         entry("gather_resample", SRC_K4, REPLACES_K4, k4_err, m4, p4, k4_bound, None),
         entry("bf16x3_mm", SRC_K5, REPLACES_K5, k5["err"], k5["ms"], k5["plain_ms"],
               k5["bound"], None),
+        entry("descriptor_hist", SRC_K6, REPLACES_K6, k6_err, *k6_ms["kitti_offline"][:3], None),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

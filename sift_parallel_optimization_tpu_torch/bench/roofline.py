@@ -41,7 +41,8 @@ The kernels' own bounds (``chip_smoke.py``'s ``kernels`` line) are
 :class:`CostModel` builders here too (:func:`reference_dog_kernel_model`,
 :func:`patch_gather_model`, :func:`score_tables_model`,
 :func:`score_rows_model`, :func:`gather_resample_model`,
-:func:`bf16x3_product_model`), read off the shapes a call is given.
+:func:`bf16x3_product_model`, :func:`descriptor_hist_model`), read off the
+shapes a call is given.
 """
 
 from __future__ import annotations
@@ -491,6 +492,22 @@ def gather_resample_model(k: int, footprint_bytes: float) -> CostModel:
     grids = 18 * 18 + 26 * 26
     return CostModel(hbm_bytes=footprint_bytes + k * (grids + 4 + 2) * 4.0,
                      elementwise_flops=16.0 * k * grids, note=f"gather resample K={k}")
+
+
+def descriptor_hist_model(slots: int, n_ori: int) -> CostModel:
+    """Kernel 6 (``csrc/descriptor_hist.cu``) on ``slots`` keypoint slots
+    with ``n_ori`` orientations: each slot's (26, 26) grid, (26,) offsets
+    and sigma read once, a theta and a validity byte an orientation, every
+    (128,) f32 descriptor row written once; per gradient sample 9 flops
+    shared by the orientations (differences, magnitude, atan2) and 66 an
+    orientation (rotation, Gaussian, bins, hats, 8 votes), 6 an element to
+    normalise; a transcendental counts one flop, so this is a floor."""
+    samples = (26 - 2) ** 2
+    read = slots * ((26 * 26 + 26 + 1 + n_ori) * 4.0 + n_ori)
+    return CostModel(hbm_bytes=read + slots * n_ori * 128 * 4.0,
+                     elementwise_flops=slots * (samples * (9.0 + 66.0 * n_ori)
+                                                + n_ori * 128 * 6.0),
+                     note=f"descriptor histograms {slots} slots x{n_ori}")
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ Default branch: one patch per keypoint from the gather kernel
 it onto the axis-aligned orientation (18^2) and descriptor (26^2) grids.
 With :data:`USE_FUSED_SAMPLING`, the fused kernel (``ops/gather_resample``)
 samples both grids straight from the atlas and the patch never reaches
-memory. Gradients, histograms and normalisation follow in plain PyTorch, in
-fp32.
+memory. Orientation follows in plain PyTorch; the descriptor histograms and
+their normalisation, every orientation of every slot, in one launch of
+``ops/descriptor_hist`` (its plain version on CPU tensors), all in fp32.
 
 A batch of frames -- (B, S+3, H_o, W_o) octaves and keypoints with a leading
 (B,) axis -- takes the same code: one (B, R, C) atlas written in place, ONE
@@ -25,6 +26,13 @@ import math
 import torch
 
 from sift_parallel_optimization_tpu_torch.models.keypoints import Keypoints
+from sift_parallel_optimization_tpu_torch.ops.descriptor_hist import (
+    DESC_BIN_SIGMA,
+    DESC_GRID,
+    DESC_WIDTH,
+    descriptor_hist,
+    grid_gradients,
+)
 from sift_parallel_optimization_tpu_torch.ops.gather_resample import gather_resample, resample
 from sift_parallel_optimization_tpu_torch.ops.patch_gather import (
     extract_atlas_patches,
@@ -36,12 +44,6 @@ N_ORI_BINS = 36
 ORI_SIGMA_FACTOR = 1.5     # orientation window sigma = 1.5 * keypoint sigma
 ORI_RADIUS_FACTOR = 3.0    # window radius = 3 * window sigma
 ORI_GRID = 18              # samples per axis (16x16 usable gradients)
-
-DESC_WIDTH = 4             # 4x4 spatial bins
-DESC_ORI_BINS = 8
-DESC_GRID = 26             # samples per axis (24x24 usable gradients)
-DESC_BIN_SIGMA = 3.0       # spatial bin width = 3 * sigma_o (Lowe 2004)
-DESC_CLIP = 0.2
 
 ATLAS_DTYPE = torch.float32
 ROW_ALIGN = 8              # row alignment of patch origins (f32)
@@ -161,13 +163,6 @@ def _keypoint_patches(
     return gather(atlas, grow, x0, rows, PATCH_COLS), py, px, sig_o
 
 
-def _grid_gradients(samples: torch.Tensor):
-    """(K, G, G) -> (gy, gx) central differences, (K, G-2, G-2)."""
-    gy = (samples[:, 2:, 1:-1] - samples[:, :-2, 1:-1]) / 2
-    gx = (samples[:, 1:-1, 2:] - samples[:, 1:-1, :-2]) / 2
-    return gy, gx
-
-
 def _radii(sig_o: torch.Tensor, max_radius: int = MAX_RADIUS):
     """Per-keypoint (orientation, descriptor) grid radii, clamped to the
     guaranteed patch coverage."""
@@ -247,7 +242,7 @@ def _orientation_from_samples(samples, offsets, sig_o, kp: Keypoints):
     Returns (theta1, theta2, second_ok)."""
     k = kp.capacity
     win_sigma = ORI_SIGMA_FACTOR * sig_o
-    gy, gx = _grid_gradients(samples)
+    gy, gx = grid_gradients(samples)
     mag = torch.sqrt(gx * gx + gy * gy).reshape(k, -1)
     ang = torch.atan2(gy, gx).reshape(k, -1)
 
@@ -291,53 +286,6 @@ def _orientation_from_samples(samples, offsets, sig_o, kp: Keypoints):
     return theta1, theta2, second_ok
 
 
-def _descriptors_from_samples(samples, offsets, sig_o, theta, kp: Keypoints):
-    """(K, 128) raw descriptor histograms from the (K, 26, 26) samples."""
-    d = DESC_WIDTH
-    g = DESC_GRID
-    k = kp.capacity
-    bin_w = DESC_BIN_SIGMA * sig_o
-    gy, gx = _grid_gradients(samples)
-    p = (g - 2) * (g - 2)
-    mag = torch.sqrt(gx * gx + gy * gy).reshape(k, p)
-    ang = torch.atan2(gy, gx).reshape(k, p) - theta[:, None]
-
-    du = offsets[:, 1:-1]
-    dy = du[:, :, None].expand(k, g - 2, g - 2).reshape(k, p)
-    dx = du[:, None, :].expand(k, g - 2, g - 2).reshape(k, p)
-    cos_t, sin_t = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
-    inv_bw = 1.0 / torch.clamp(bin_w, min=1e-6)[:, None]
-    u = (cos_t * dy - sin_t * dx) * inv_bw            # rotated row, bin units
-    v = (sin_t * dy + cos_t * dx) * inv_bw            # rotated col, bin units
-    w = mag * torch.exp(-(u * u + v * v) / (0.5 * d * d))
-
-    rbin = u + d / 2.0 - 0.5
-    cbin = v + d / 2.0 - 0.5
-    obin = torch.remainder(ang, 2 * math.pi) / (2 * math.pi) * DESC_ORI_BINS
-
-    # Trilinear voting as separable hat-weight vectors (no one-hot).
-    dev = samples.device
-    bins_rc = torch.arange(d, dtype=torch.float32, device=dev)
-    wr = torch.clamp(1.0 - (rbin[..., None] - bins_rc).abs(), min=0.0)
-    wc = torch.clamp(1.0 - (cbin[..., None] - bins_rc).abs(), min=0.0)
-    bins_o = torch.arange(DESC_ORI_BINS, dtype=torch.float32, device=dev)
-    do = (obin[..., None] - bins_o).abs()
-    do = torch.minimum(do, DESC_ORI_BINS - do)
-    wo = torch.clamp(1.0 - do, min=0.0)
-
-    t = ((w[..., None] * wr)[..., :, None] * wc[..., None, :]).reshape(k, p, d * d)
-    return torch.bmm(t.transpose(1, 2), wo).reshape(k, d * d * DESC_ORI_BINS)
-
-
-def _normalize_desc(hist: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    norm = torch.linalg.vector_norm(hist, dim=-1, keepdim=True)
-    desc = hist / torch.clamp(norm, min=1e-7)
-    desc = torch.clamp(desc, max=DESC_CLIP)
-    norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
-    desc = desc / torch.clamp(norm, min=1e-7)
-    return torch.where(valid[:, None], desc, torch.zeros_like(desc))
-
-
 def orient_and_describe(
     gauss_octaves: list[torch.Tensor],
     kp: Keypoints,
@@ -354,8 +302,9 @@ def orient_and_describe(
 
     Every device operation runs in one of the sub-spans
     ``sift.describe.sample`` (atlas, patches, resample),
-    ``sift.describe.orient`` and ``sift.describe.histogram`` (descriptors,
-    normalisation, the assembly of both orientations).
+    ``sift.describe.orient`` and ``sift.describe.histogram`` (both
+    orientations' descriptors and normalisation in one ``ops/descriptor_hist``
+    call, written in place; the assembly of the keypoints).
     """
     lead = tuple(kp.x.shape[:-1])
     with span("sift.describe.sample"):
@@ -366,19 +315,16 @@ def orient_and_describe(
         zero = torch.zeros_like(theta1)
         kp1 = kp._replace(orientation=torch.where(kp.valid, theta1, zero))
     with span("sift.describe.histogram"):
-        desc1 = _normalize_desc(
-            _descriptors_from_samples(s_d, off_d, sig_o, kp1.orientation, kp1), kp1.valid
-        )
         unfold = lambda t: t.reshape(*lead, -1, *t.shape[1:])
+        grids = (unfold(s_d), unfold(off_d), unfold(sig_o))
+        first = (unfold(kp1.orientation), unfold(kp1.valid))
         if not dual_orientation:
-            return Keypoints(*map(unfold, kp1)), unfold(desc1)
+            return Keypoints(*map(unfold, kp1)), descriptor_hist(*grids, (first,))
         valid2 = kp.valid & second_ok
         kp2 = kp._replace(orientation=torch.where(valid2, theta2, zero), valid=valid2)
-        desc2 = _normalize_desc(
-            _descriptors_from_samples(s_d, off_d, sig_o, kp2.orientation, kp2), valid2
-        )
+        desc = descriptor_hist(*grids, (first, (unfold(kp2.orientation), unfold(valid2))))
         both = Keypoints(*[torch.cat([unfold(a), unfold(b)], dim=-1) for a, b in zip(kp1, kp2)])
-        return both, torch.cat([unfold(desc1), unfold(desc2)], dim=-2)
+        return both, desc
 
 
 def assign_orientations(gauss_octaves: list[torch.Tensor], kp: Keypoints) -> Keypoints:
@@ -396,6 +342,7 @@ def compute_descriptors(gauss_octaves: list[torch.Tensor], kp: Keypoints) -> tor
     """(K, 128) L2-normalised, 0.2-clipped SIFT descriptors (Lowe 2004) at
     the keypoints' own orientations; zero rows at invalid slots."""
     _s_o, s_d, _off_o, off_d, sig_o = _sample_grids(gauss_octaves, kp)
-    flat = Keypoints(*[f.reshape(-1) for f in kp])
-    hist = _descriptors_from_samples(s_d, off_d, sig_o, flat.orientation, flat)
-    return _normalize_desc(hist, flat.valid).reshape(*kp.valid.shape, -1)
+    slots = tuple(kp.valid.shape)
+    unfold = lambda t: t.reshape(*slots, *t.shape[1:])
+    orientation = (kp.orientation.contiguous(), kp.valid.contiguous())
+    return descriptor_hist(unfold(s_d), unfold(off_d), unfold(sig_o), (orientation,))

@@ -112,6 +112,8 @@ def load_kernels() -> ctypes.CDLL:
         lib.sift_score_block_top2.argtypes = [p, p, i, i, i, ll, ll, ll, f, f, f, i, p, p, p, p]
         lib.sift_gather_resample.restype = i
         lib.sift_gather_resample.argtypes = [p, i, i, p, p, p, i, i, p, p, p]
+        lib.sift_descriptor_hist.restype = i
+        lib.sift_descriptor_hist.argtypes = [p, p, p, p, p, p, p, ll, i, i, p, p]
         bind_bf16x3(lib)
         _lib = lib
         return _lib

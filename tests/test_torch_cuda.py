@@ -15,6 +15,7 @@ from sift_parallel_optimization_tpu_torch.core import pyramid_ref
 from sift_parallel_optimization_tpu_torch.models import descriptor
 from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend, sift_config
 from sift_parallel_optimization_tpu_torch.ops import blur_product as bp
+from sift_parallel_optimization_tpu_torch.ops import descriptor_hist as dh
 from sift_parallel_optimization_tpu_torch.ops import gather_resample as gr
 from sift_parallel_optimization_tpu_torch.ops import patch_gather as pg
 from sift_parallel_optimization_tpu_torch.ops import scale_space as ss
@@ -26,6 +27,12 @@ pytestmark = pytest.mark.cuda
 
 # Kernel 4 against its plain version (batched matmuls that may sum with FMAs).
 RTOL, ATOL = 1e-5, 1e-6
+# Kernel 6 against its plain version: the same f32 operations one by one,
+# but the sums over a bin's votes (up to 576 non-negative terms, summed by
+# the plain version's fp32 product in another order) and over a row's 128
+# squares run in another order, and two norms divide the result: a few 1e-7
+# to a few 1e-6 an element on descriptors whose elements reach 0.2.
+DESC_ATOL = 1e-5
 # The SIFT pyramid at blur_precision="high", card against CPU: both run the
 # same bf16x3 products (kernel 5 and its plain version) and differ by their
 # summation order, far below the 3e-5 the CPU tests allow against JAX.
@@ -104,11 +111,12 @@ def test_batched_frontend_launches_each_kernel_once(dev, monkeypatch):
     for name in ("LAUNCHES", "LAUNCHES_BATCHED"):
         monkeypatch.setattr(pg, name, 0)
     monkeypatch.setattr(st, "LAUNCHES", 0)
+    monkeypatch.setattr(dh, "LAUNCHES", 0)
     imgs = torch.from_numpy(np.stack([native.synth_frame(256, i, seed=0) for i in range(4)]))
     cfg = sift_config(256)
     out = batched_extract_features(imgs, cfg, 64, device=dev)
     torch.cuda.synchronize()
-    assert (pg.LAUNCHES, pg.LAUNCHES_BATCHED, st.LAUNCHES) == (0, 1, 1)
+    assert (pg.LAUNCHES, pg.LAUNCHES_BATCHED, st.LAUNCHES, dh.LAUNCHES) == (0, 1, 1, 1)
     assert out.descriptors.shape == (4, 64, 128) and out.descriptors.is_cuda
     fe = SiftFrontend(cfg, max_keypoints=64, device=dev)
     for i in range(4):
@@ -437,10 +445,90 @@ def test_wrappers_check_inputs(dev):
         bp.bf16x3_bmm_cuda(atlas.to(torch.bfloat16), atlas.to(torch.bfloat16))
     with pytest.raises(ValueError, match="inner stride"):
         bp.bf16x3_bmm_cuda(atlas, atlas, out=torch.empty(64, 64, device=dev).t())
+    samples, offsets, sig_o, oris = _hist_inputs(dev, (), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        dh.descriptor_hist_cuda(samples.transpose(-1, -2), offsets, sig_o, oris)
+    with pytest.raises(ValueError, match="one device"):
+        dh.descriptor_hist_cuda(samples, offsets.cpu(), sig_o, oris)
+
+
+def _hist_inputs(dev, lead, k, n_ori=2, p_valid=0.9, second=0.5, sig=None, seed=0):
+    """Kernel 6's inputs with the slots' (*lead, K) axes: sample grids (a
+    random field on a ramp), offsets from the program's radii at the
+    KITTI frontend's patch radius, sigma over the frontend's range (or
+    ``sig``), theta, and validity (``second``: the share of valid slots with
+    a second orientation)."""
+    g = torch.Generator().manual_seed(seed)
+    n = int(np.prod(lead)) * k
+    s = torch.rand((n, 26, 26), generator=g)
+    s = s + torch.linspace(0, 1, 26)[None, :, None] * torch.rand((n, 1, 1), generator=g)
+    sig_o = torch.rand(n, generator=g) * 5 + 0.8 if sig is None else torch.full((n,), sig)
+    _rad_o, rad_d = descriptor._radii(sig_o, descriptor.max_patch_radius(3))
+    off = torch.linspace(-1.0, 1.0, 26)[None] * rad_d[:, None]
+    valid1 = torch.rand(n, generator=g) < p_valid
+    valid2 = valid1 & (torch.rand(n, generator=g) < second)
+    oris = tuple((torch.where(v, (torch.rand(n, generator=g) * 2 - 1) * np.pi, 0.0), v)
+                 for v in (valid1, valid2))[:n_ori]
+    shape = lambda t: t.reshape(*lead, k, *t.shape[1:]).to(dev)
+    return shape(s), shape(off), shape(sig_o), tuple((shape(t), shape(v)) for t, v in oris)
+
+
+# sigma (octave px) at which the KITTI frontend's descriptor radius meets its
+# clamp (max_patch_radius - 1): the two ends are just under it and far over.
+_SIG_CLAMP = (descriptor.max_patch_radius(3) - 1.0) / (3.0 * 2**0.5 * 2.5)
+
+
+@pytest.mark.parametrize("name,lead,k,kw", [
+    ("kitti_offline", (8,), 2000, {}),
+    ("tum live", (), 1000, {}),
+    ("single orientation", (8,), 2000, dict(n_ori=1)),
+    ("every slot invalid", (2,), 1000, dict(p_valid=0.0)),
+    ("no second orientation", (8,), 2000, dict(second=0.0)),
+    ("sigma under the radius clamp", (), 1000, dict(sig=_SIG_CLAMP * 0.999)),
+    ("sigma far over the radius clamp", (), 1000, dict(sig=_SIG_CLAMP * 4)),
+    ("sigma at the smallest octave scale", (), 1000, dict(sig=0.8)),
+])
+def test_descriptor_hist_kernel_matches_plain(dev, name, lead, k, kw):
+    args = _hist_inputs(dev, lead, k, **kw)
+    before = dh.LAUNCHES
+    got = dh.descriptor_hist_cuda(*args)
+    want = dh.descriptor_hist_plain(*args)
+    again = dh.descriptor_hist_cuda(*args)
+    torch.cuda.synchronize()
+    assert dh.LAUNCHES == before + 2
+    n_ori = len(args[3])
+    assert got.shape == want.shape == (*lead, n_ori * k, 128)
+    torch.testing.assert_close(got, want, rtol=0, atol=DESC_ATOL)
+    # Zero rows exactly where an orientation is invalid, in both.
+    invalid = torch.cat([~v for _t, v in args[3]], dim=-1)
+    assert torch.equal((got == 0).all(-1), invalid) and torch.equal((want == 0).all(-1), invalid)
+    # A repeat call gives the same bits: no sum runs in a varying order.
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_descriptor_hist_launches_once_a_describe(dev, monkeypatch):
+    """One launch per orient_and_describe call: per frame and for a batch of
+    8 KITTI-shaped frames (376 x 1241, K 2000, both orientations)."""
+    monkeypatch.setattr(dh, "LAUNCHES", 0)
+    h, w, b = 376, 1241, 8
+    frames = torch.stack([torch.from_numpy(native.synth_frame(1280, i, seed=0)[:h, :w].copy())
+                          for i in range(b)]).to(dev)
+    fe = SiftFrontend(sift_config(h), h, w, max_keypoints=2000, dual_orientation=True,
+                      device=dev)
+    batched = fe(frames)
+    torch.cuda.synchronize()
+    assert dh.LAUNCHES == 1 and batched.descriptors.shape == (b, 4000, 128)
+    one = fe(frames[0])
+    torch.cuda.synchronize()
+    assert dh.LAUNCHES == 2 and one.descriptors.shape == (4000, 128)
+    single = SiftFrontend(sift_config(256), max_keypoints=64, device=dev)
+    single(frames[0, :256, :256].contiguous())
+    torch.cuda.synchronize()
+    assert dh.LAUNCHES == 3
 
 
 def test_main_path_launches_the_kernels(dev, monkeypatch):
-    for mod in (ss, pg, st, gr):
+    for mod in (ss, pg, st, gr, dh):
         monkeypatch.setattr(mod, "LAUNCHES", 0)
     img = torch.from_numpy(native.synth_frame(256, 0, seed=0)).to(dev)
     pyramid_ref.reference_dog_pyramid(img, 2)
@@ -449,7 +537,7 @@ def test_main_path_launches_the_kernels(dev, monkeypatch):
     monkeypatch.setattr(descriptor, "USE_FUSED_SAMPLING", True)
     fused = fe(img)
     torch.cuda.synchronize()
-    assert (ss.LAUNCHES, pg.LAUNCHES, st.LAUNCHES, gr.LAUNCHES) == (1, 1, 2, 1)
+    assert (ss.LAUNCHES, pg.LAUNCHES, st.LAUNCHES, gr.LAUNCHES, dh.LAUNCHES) == (1, 1, 2, 1, 2)
     assert int(feats.keypoints.count()) > 0
     assert torch.equal(feats.keypoints.valid, fused.keypoints.valid)
 

@@ -24,6 +24,7 @@ from sift_parallel_optimization_tpu_torch.core import pyramid_ref as tpr
 from sift_parallel_optimization_tpu_torch.models import frontend as tfe
 from sift_parallel_optimization_tpu_torch.models import descriptor as tdesc
 from sift_parallel_optimization_tpu_torch.ops import _build
+from sift_parallel_optimization_tpu_torch.ops import descriptor_hist as tdh
 from sift_parallel_optimization_tpu_torch.ops import gather_resample as tgr
 from sift_parallel_optimization_tpu_torch.ops import patch_gather as tpg
 from sift_parallel_optimization_tpu_torch.ops import scale_space as tss
@@ -137,7 +138,7 @@ def test_frontend_and_converters_default_to_the_card_and_raise_without_one(monke
 
 
 def test_cpu_tensors_take_plain_paths(monkeypatch):
-    for mod in (tss, tpg, tst, tgr):
+    for mod in (tss, tpg, tst, tgr, tdh):
         monkeypatch.setattr(mod, "LAUNCHES", 0)
     monkeypatch.setattr(tpg, "LAUNCHES_BATCHED", 0)
     img = torch.from_numpy(tnative.synth_frame(64, 0, seed=5))
@@ -155,7 +156,7 @@ def test_cpu_tensors_take_plain_paths(monkeypatch):
     feats = batched_extract_features(torch.stack([img, img]), tfe.sift_config(64), 32,
                                      use_approx_topk=True)
     assert feats.descriptors.shape == (2, 32, 128)
-    assert tss.LAUNCHES == tpg.LAUNCHES == tst.LAUNCHES == tgr.LAUNCHES == 0
+    assert tss.LAUNCHES == tpg.LAUNCHES == tst.LAUNCHES == tgr.LAUNCHES == tdh.LAUNCHES == 0
     assert tpg.LAUNCHES_BATCHED == 0
 
 
@@ -295,8 +296,8 @@ def test_native_loader_rebuilds_a_half_written_library(tmp_path, monkeypatch):
 
 def test_kernel_sources_hash_covers_every_source():
     names = [p.name for p in _build._sources()]
-    assert names == ["bf16x3_mm.cu", "gather_resample.cu", "patch_gather.cu",
-                     "reference_dog.cu", "score_tables.cu"]
+    assert names == ["bf16x3_mm.cu", "descriptor_hist.cu", "gather_resample.cu",
+                     "patch_gather.cu", "reference_dog.cu", "score_tables.cu"]
     assert _build.source_hash() == _build.source_hash()
     assert len(_build.source_hash()) == 64
 
