@@ -4,12 +4,13 @@
 
 From the root of a checkout. The cell (``BENCHMARK.json``'s ``workloads``)
 names a configuration and a traffic mix; the run renders the mix's frame
-pool from ``--seed`` on the host, builds the program's ``SiftFrontend`` on
-the card, warms up the cell's own shapes, then drives the frontend for
-``--seconds`` through the mix's loop (:mod:`benchmark.loops`), each frame
-uploaded by the program's ``cli.upload_frame``. After the window it checks
-a sample of the window's outputs against the plain reference
-(:mod:`benchmark.reference`, :mod:`benchmark.correct`) and prints, as the
+pool from ``--seed`` on the host, builds the program on the card through
+the configuration's pipeline (:mod:`benchmark.pipelines`), warms up the
+cell's own shapes, then drives the program for ``--seconds`` through the
+mix's loop (:mod:`benchmark.loops`), each unit of frames uploaded by the
+program's ``cli.upload_frame``. After the window the pipeline checks a
+sample of the window's outputs against the configuration's plain
+reference (:mod:`benchmark.reference`), and the run prints, as the
 last line of standard output, one JSON object: ``correct``, ``attempted``,
 ``failed``, ``metrics``, ``device`` (with ``--trace 1`` also
 ``breakdown``), and last ``checks``, each number compared beside its limit
@@ -20,7 +21,9 @@ same window with ``torch.profiler`` on over a slice of it and reports the
 per-layer metrics. Every metric comes from its reader in
 ``benchmark/metrics``. Without a card (or with fewer cards than the cell
 asks for) the run exits with code 2 and prints no result; so it does if a
-JAX module is loaded when the window has closed.
+JAX module is loaded when the result is due (after the window, the check
+and the readers), and if the configuration has a key that is neither the
+harness's nor a setting of the pipeline.
 """
 
 from __future__ import annotations
@@ -64,10 +67,10 @@ def fail(msg: str, code: int = 2) -> int:
 class Run:
     """What a reader sees of one run: the cell's configuration and mix, the
     metric being read, the window's units (one per frame or batch; host ``perf_counter``
-    seconds), the traced slice, the trace, and the traced units'
-    keypoints."""
+    seconds), the traced slice, the trace, and the traced units' outputs
+    on the host (the pipeline's records, a list a unit)."""
 
-    def __init__(self, cell, args, octaves: list[tuple[int, int]]):
+    def __init__(self, cell, args, octaves: list[tuple[int, int]] | None):
         self.cfg, self.mix = cell.config, cell.mix
         self.seconds = args.seconds
         self.metric = ""
@@ -81,7 +84,7 @@ class Run:
         self.traced_keypoints: dict[int, list[dict]] = {}
         self.clock_us = 0.0                  # trace clock (us) at perf_counter 0
         self.device_name = ""
-        self.octaves = octaves               # (H, W) of each octave
+        self.octaves = octaves               # (H, W) of each octave, or None
 
     def frames(self, units) -> int:
         return sum(u["frames"] for u in units)
@@ -129,18 +132,21 @@ def main(argv=None) -> int:
 
 def run_cell(cell, args, dev, frontend_factory=None) -> int:
     """The run on ``dev``. The control and the tests pass a factory that
-    wraps or replaces the program's frontend, and the tests a CPU device;
-    the command line does neither."""
-    import numpy as np
+    wraps or replaces the program the pipeline builds, and the tests a CPU
+    device; the command line does neither."""
     import torch
 
-    from benchmark import correct, frames, loops, spec
-    from benchmark.reference import sift as reference
+    from benchmark import frames, spec
     from sift_parallel_optimization_tpu_torch.cli import upload_frame
-    from sift_parallel_optimization_tpu_torch.config import PyramidConfig, ScaleSpaceMode
-    from sift_parallel_optimization_tpu_torch.models.frontend import SiftFrontend
 
     cfg, mix = cell.config, cell.mix
+    pipeline = cell.module("pipelines", cell.pipeline)
+    known = set(spec.HARNESS_KEYS) | pipeline.settings()
+    unknown = [k for k in cfg if k not in known]
+    if unknown:
+        return fail(f"configuration {cfg.get('name')!r}: {', '.join(map(repr, unknown))} is "
+                    f"neither a key of the harness (benchmark/spec.py) nor a setting that "
+                    f"pipeline {cell.pipeline!r} hands to the program")
     torch.backends.cuda.matmul.allow_tf32 = bool(cfg["tf32"])
     torch.backends.cudnn.allow_tf32 = bool(cfg["tf32"])
     torch.set_float32_matmul_precision("high" if cfg["tf32"] else "highest")
@@ -152,26 +158,19 @@ def run_cell(cell, args, dev, frontend_factory=None) -> int:
     pool = frames.render_pool(cfg, n_pool, args.seed)
     t_rendered = time.perf_counter()
 
-    pcfg = PyramidConfig(length=min(cfg["height"], cfg["width"]), S=cfg["S"],
-                         mode=ScaleSpaceMode.SIFT, sigma0=cfg["sigma0"],
-                         assumed_blur=cfg["assumed_blur"],
-                         min_octave_size=cfg["min_octave_size"],
-                         blur_precision=cfg["blur_precision"])
-    # Block-top-2 selection, the program's own on the card, taken on the CPU
-    # too: the reference selects so.
-    fe = SiftFrontend(pcfg, cfg["height"], cfg["width"], max_keypoints=cfg["max_keypoints"],
-                      dual_orientation=cfg["dual_orientation"], device=dev,
-                      contrast_threshold=cfg["contrast_threshold"],
-                      edge_ratio=cfg["edge_ratio"], use_approx_topk=True)
-    forward = fe if frontend_factory is None else frontend_factory(fe)
+    forward, octaves = pipeline.build(cell, dev, frontend_factory)
     units_pool = pool.reshape(n_pool // batch, batch, cfg["height"], cfg["width"])
     if batch == 1:
         units_pool = units_pool[:, 0]
-    run = Run(cell, args, [tuple(s) for s in fe.pyramid.shapes])
+    run = Run(cell, args, octaves)
     run.device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
     def upload(i: int):
         return upload_frame(units_pool[i % len(units_pool)], dev)
+
+    def unit_frames(i: int):
+        unit = units_pool[i % len(units_pool)]
+        return unit if batch > 1 else [unit]
 
     # Warm up the cell's own shape: every kernel is built and every buffer
     # allocated before the window.
@@ -201,14 +200,11 @@ def run_cell(cell, args, dev, frontend_factory=None) -> int:
             if j < n_check:
                 kept[j] = (i, out)
 
-    loop = getattr(loops, mix["loop"])
-    run.t0, run.units = loop(upload, forward, keep, run, dev, args, profiler)
+    loop = cell.module("loops", mix["loop"])
+    run.t0, run.units = loop.drive(upload, forward, keep, run, dev, args, profiler)
     sync()
     run.setup_s = run.t0 - PROCESS_START
     memory_peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
-    found = forbidden_modules()
-    if found:
-        return fail(f"JAX modules loaded in the run: {', '.join(found)}")
 
     if profiler is not None and len(run.traced):
         from benchmark.trace import Trace
@@ -224,27 +220,14 @@ def run_cell(cell, args, dev, frontend_factory=None) -> int:
 
     # The window is over: the program's outputs to the host, its state freed,
     # then the reference on the same frames.
-    checked = [(i, correct.as_numpy(_features(out, j))) for i, out in kept
-               for j in range(batch)]
-    run.traced_keypoints = {i: [correct.as_numpy(_features(out, j)) for j in range(batch)]
-                            for i, out in run.traced_out.items()}
+    checked = [pair for i, out in kept
+               for pair in zip(unit_frames(i), pipeline.to_host(out), strict=True)]
+    run.traced_keypoints = {i: pipeline.to_host(out) for i, out in run.traced_out.items()}
     run.traced_out.clear()
-    del kept, fe, forward
+    del kept, forward
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    stats, kp_counts = [], []
-    for n, (i, prog) in enumerate(checked):
-        frame = units_pool[i % len(units_pool)]
-        frame = frame[n % batch] if batch > 1 else frame
-        ref = correct.as_numpy(reference.features(torch.from_numpy(np.ascontiguousarray(frame))
-                                                  .to(dev), cfg))
-        stats.append(correct.frame_stats(prog, ref, cfg))
-        kp_counts.append(int(prog["valid"][:cfg["max_keypoints"]].sum()))
-    nums = correct.numbers(stats)
-    ok, rows = correct.verdict(nums, cfg["limits"], stats)
-    # A checked frame fails when its answer is missing: no valid keypoint
-    # from the program where the reference finds some.
-    failed = sum(1 for s in stats if s["valid"] == 0 and s["valid_ref"] > 0)
+    ok, rows, failed, checked_info = pipeline.check(cell, checked, dev)
     t_checked = time.perf_counter()
 
     metrics = {}
@@ -274,15 +257,17 @@ def run_cell(cell, args, dev, frontend_factory=None) -> int:
     info = {"pool_frames": n_pool, "render_s": t_rendered - t_setup,
             "build_warm_s": t_warm - t_rendered, "setup_s": run.setup_s,
             "check_s": t_checked - run.t0 - args.seconds,
-            "frames_checked": len(checked),
-            "keypoints_per_frame": sum(kp_counts) / max(len(kp_counts), 1),
             "generator_late_ms_max": max(late) * 1e3 if late else None,
-            "device": run.device_name}
-    info.update({f"widest_{k}": v for k, v in correct.widest(stats).items()})
+            "device": run.device_name, **checked_info}
     for k, v in info.items():
         print(f"info {k} {v}", file=sys.stderr)
     for name, v, lim in rows:
         print(f"check {name} {v!r} limit {lim!r}", file=sys.stderr)
+    # Last, so that it sees what the window, the pipeline's check, its
+    # reference and the readers loaded.
+    found = forbidden_modules()
+    if found:
+        return fail(f"JAX modules loaded in the run: {', '.join(found)}")
     print(json.dumps(result))
     return 0
 
@@ -301,13 +286,6 @@ def _place_trace(run) -> None:
     ends = [s.end for s in run.trace.spans_named("bench.sync")]
     ends += [op.end for op in run.trace.device if op.ts >= lo]
     run.trace_window = (lo, max(ends) if ends else run.to_trace(units[-1]["done"]))
-
-
-def _features(out, j: int) -> dict:
-    """Frame ``j`` of a unit's Features as a flat dict (a (K,) unit has j 0)."""
-    kp, desc = out.keypoints, out.descriptors
-    pick = (lambda t: t[j]) if desc.dim() == 3 else (lambda t: t)
-    return dict({f: pick(v) for f, v in kp._asdict().items()}, desc=pick(desc))
 
 
 if __name__ == "__main__":
